@@ -14,10 +14,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the plain step path on the card, predict/score, and a golden path;
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
-     wall times and samples/s.
-Then one JSON line per kernel and, last, {"ok": true, "device": {...}}.
-The script needs the repository checkout and a CUDA device; it has no CPU
-path.
+     wall times and samples/s;
+  7. K3 / K4 (the BlockCOO tail kernels) against their twins at the shapes
+     of the Pallas probes they replace (p 47000, E 11520, B 8192, k 1) and
+     on every block of slice C's tail: relative error, identical bits over
+     two runs, kernel / twin / torch.sparse.mm times and the bound;
+  8. K2 against its twin on a bf16 head at slice C's width (106496 x 16384,
+     B 8192, k 1, the last block);
+  9. slice C, the north-star sparse workload (a copy of bench.py's
+     make_sparse_binomial: n 100000, p 47000, 76 nonzeros a row, Zipf
+     columns; binomial, alpha 1, 10 lambdas) through fit() on a bf16
+     16384-wide hybrid head: K2 + K3 + K4 by default, held per lambda by
+     penalized objective against the same fit on plain torch ops;
+ 10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
+     products are torch), held the same way.
+Each path (slices A, B, C, D) runs with the launch counts set to 0 just
+before it and read just after.  Then a JSON line with every number, one
+JSON line of the kernels, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  The script needs the repository checkout
+and a CUDA device; it has no CPU path.
 """
 
 from __future__ import annotations
@@ -33,6 +48,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: H100 SXM peaks (NVIDIA's data sheet): device memory rate, FP32 outside
+#: the tensor cores, dense bf16 tensor cores
+HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 class SmokeFailure(RuntimeError):
@@ -50,6 +68,34 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def roofline(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time for the work: the larger of the bytes over the memory
+    rate and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def device_ms(fn, reps: int, names) -> float | None:
+    """Device time per call of the kernels whose names contain one of
+    `names`, summed from torch.profiler over `reps` calls after a warm-up;
+    None when the profiler saw no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages() if any(nm in e.key for nm in names))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _fmt(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -122,8 +168,17 @@ def phase_k2(rng, dev):
     args = (head, start, w, lpe, yb, gm, wb, "multinomial")
     ms = cuda_ms(lambda: hk.fused_head_step_at(*args), 50)
     plain_ms = cuda_ms(lambda: hk.fused_head_step_reference(*args), 50)
-    print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-    return {"max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms}
+    xb = head[start:start + B]
+    gct = torch.zeros((k, B), device=dev)
+    two_ms = cuda_ms(lambda: (xb @ w.T, gct @ xb), 50)
+    # the block once, w, lp_extra / y / g_mem / wb in; g and corr out
+    b = roofline(4 * (B * 784 + 2 * k * 784 + 4 * B * k + B), 4 * B * 784 * k, F32_FLOPS)
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, ("head_step_tile", "head_corr_reduce"))
+    print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the "
+          f"device), plain torch {plain_ms:.4f} ms, the two torch.matmul products {two_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "two_products_ms": two_ms, "device_ms": dev_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +237,7 @@ def _k1_case(rng, dev, name, x, y, family_name, alpha, grouped=False, offs=None,
     args = (data, ps, starts, B, fam, pen, gamma, alpha * lam, (1 - alpha) * lam, float(n))
     out = ek.saga_epoch(*args)
     ref = ek.epoch_reference(*args)
+    dims = (n, p, k, B)
     torch.cuda.synchronize()
     rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(out, ref))
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
@@ -192,7 +248,7 @@ def _k1_case(rng, dev, name, x, y, family_name, alpha, grouped=False, offs=None,
     print(f"  K1 {name:8s} {family_name:11s} {pen.name:11s}{extras:8s} n_pad={n_pad} P={P} k={k}: "
           f"rel err {rel:.3e} (bound 1e-4), pads zero: {pads_zero} {'ok' if ok else 'FAIL'}")
     check(ok, f"K1 disagrees with its twin on {name}")
-    return err, args
+    return err, args, dims
 
 
 def phase_k1(rng, dev):
@@ -201,29 +257,37 @@ def phase_k1(rng, dev):
 
     worst = 0.0
     xa, ya = d.load_abalone()
-    err, timing_args = _k1_case(rng, dev, "abalone", xa, ya, "gaussian", 0.8)
+    err, timing_args, (n, p, k, B) = _k1_case(rng, dev, "abalone", xa, ya, "gaussian", 0.8)
     worst = max(worst, err)
     xh, yh = d.load_heart()
     pf = np.ones(xh.shape[1])
     pf[0], pf[3] = 0.0, 3.0
-    err, _ = _k1_case(rng, dev, "heart", xh, yh, "binomial", 0.0,
+    err, _, _ = _k1_case(rng, dev, "heart", xh, yh, "binomial", 0.0,
                       offs=0.2 * rng.standard_normal(len(yh)), pf=pf)
     worst = max(worst, err)
     xw, yw = d.load_wine()
-    err, _ = _k1_case(rng, dev, "wine", xw, yw, "multinomial", 0.9, grouped=True)
+    err, _, _ = _k1_case(rng, dev, "wine", xw, yw, "multinomial", 0.9, grouped=True)
     worst = max(worst, err)
     xs, ys = d.load_student()
-    err, _ = _k1_case(rng, dev, "student", xs, ys, "mgaussian", 0.5)
+    err, _, _ = _k1_case(rng, dev, "student", xs, ys, "mgaussian", 0.5)
     worst = max(worst, err)
     xp = rng.standard_normal((600, 12))
     yp = rng.poisson(np.exp(0.3 + xp @ (0.3 * rng.standard_normal(12)))).astype(np.float64)
-    err, _ = _k1_case(rng, dev, "poisson", xp, yp, "poisson", 0.5)
+    err, _, _ = _k1_case(rng, dev, "poisson", xp, yp, "poisson", 0.5)
     worst = max(worst, err)
     ms = cuda_ms(lambda: ek.saga_epoch(*timing_args), 50)
     plain_ms = cuda_ms(lambda: ek.epoch_reference(*timing_args), 5)
-    print(f"  K1 time, one abalone epoch (n_pad=4192, P=128, B=32, 131 steps): kernel {ms:.4f} ms, "
-          f"plain torch {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # the real data and state once in (x, y, weights, g_mem, w, g_sum, the
+    # block order), the state once out; two products a step over the epoch.
+    # Its time is set by the 131 dependent steps, not by this roofline
+    T = -(-n // B)
+    b = roofline(4 * (n * p + 3 * n * k + n + 2 * k * p + T) + 4 * (n * k + 2 * k * p + 2 * k), 4 * n * p * k,
+                 F32_FLOPS)
+    dev_ms = device_ms(lambda: ek.saga_epoch(*timing_args), 20, ("saga_epoch", "gsum_refresh"))
+    print(f"  K1 time, one abalone epoch (n_pad=4192, P=128, B=32, 131 steps): kernel {ms:.4f} ms a call "
+          f"({_fmt(dev_ms)} on the device), plain torch {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
+          f"({b['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "device_ms": dev_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +399,300 @@ def check_slice_b(f, wall, launches, xt, y, dev, card, seed):
             "plain_samples_per_s": sps_plain, "plain_path_samples_per_s": path_sps_plain}
 
 
+# ---------------------------------------------------------------------------
+# the sparse slices' data: a copy of bench.py's make_sparse_binomial
+# ---------------------------------------------------------------------------
+
+
+def make_sparse_binomial(n=100_000, p=47_000, nnz_per_row=76, seed=0):
+    """rcv1-scale synthetic (bench.py:142-165): fixed nonzeros per row, Zipf
+    column use (rank + 10)^-1.15, 5% true features; as a canonical scipy
+    CSR (duplicates summed) and y (n,)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    weights = (np.arange(p) + 10.0) ** -1.15
+    cdf = np.cumsum(weights) / weights.sum()
+    cols = np.searchsorted(cdf, rng.random((n, nnz_per_row))).astype(np.int32).clip(0, p - 1)
+    vals = rng.normal(size=(n, nnz_per_row)).astype(np.float32)
+    w_true = rng.normal(size=p) * (rng.random(p) < 0.05) * 3.0
+    lp = (vals * w_true[cols]).sum(axis=1)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-lp))).astype(np.float32)
+    x = sp.csr_matrix((vals.ravel(), cols.ravel(), np.arange(0, n * nnz_per_row + 1, nnz_per_row)), shape=(n, p))
+    x.sum_duplicates()
+    return x, y
+
+
+SLICE_C = dict(family="binomial", alpha=1.0, nlambda=10, lambda_min_ratio=0.05, maxit=100, batch_size=8192,
+               sampling="block", hybrid=True, hybrid_max_head=16384, hybrid_coverage=0.98,
+               hybrid_head_dtype="bfloat16", g_sum_refresh_every=4, hybrid_memory_budget=8e9)
+SLICE_D = dict(SLICE_C, hybrid_max_head=32768, hybrid_coverage=0.995, hybrid_head_dtype="int8",
+               g_sum_refresh_every=8)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: K3 / K4 against their twins
+# ---------------------------------------------------------------------------
+
+
+def _tail_block_check(tk, bt, blk, rng, dev, what):
+    """Kernel vs twin on one block (k = 1): max relative error and whether
+    two runs give the same bits."""
+    w = torch.as_tensor(rng.standard_normal((1, bt.n_cols), dtype=np.float32), device=dev)
+    gc = torch.as_tensor(rng.standard_normal((bt.batch, 1), dtype=np.float32), device=dev)
+    f, o = tk.coo_tail_forward(bt, blk, w), tk.coo_tail_outer(bt, blk, gc)
+    f_ref, o_ref = tk.coo_tail_forward_reference(bt, blk, w), tk.coo_tail_outer_reference(bt, blk, gc)
+    same = torch.equal(f, tk.coo_tail_forward(bt, blk, w)) and torch.equal(o, tk.coo_tail_outer(bt, blk, gc))
+    torch.cuda.synchronize()
+    rel = max(float((f - f_ref).abs().max()) / max(float(f_ref.abs().max()), 1e-30),
+              float((o - o_ref).abs().max()) / max(float(o_ref.abs().max()), 1e-30))
+    err = max(float((f - f_ref).abs().max()), float((o - o_ref).abs().max()))
+    check(rel <= 1e-5, f"K3/K4 disagree with their twins ({what}, block {blk}): rel {rel:.3e}")
+    check(same, f"K3/K4 gave different bits in two runs ({what}, block {blk})")
+    return rel, err, w, gc
+
+
+def _tail_times(tk, bt, blk, w, gc, dev):
+    """Kernel, twin and torch.sparse.mm times on one block, and the bounds:
+    each true entry's row, column and value once, the touched w columns /
+    gc rows once, the output once; 2 flops an entry."""
+    import scipy.sparse as sp
+
+    c = int(bt.counts[blk])
+    rows = bt.rows[blk, :c].cpu().numpy()
+    cols = bt.cols[blk, :c].cpu().numpy()
+    vals = bt.vals[blk, :c].cpu().numpy()
+    a = sp.csr_matrix((vals, (rows, cols)), shape=(bt.batch, bt.n_cols))
+    at = a.T.tocsr()
+
+    def csr(m):
+        return torch.sparse_csr_tensor(torch.as_tensor(m.indptr), torch.as_tensor(m.indices),
+                                       torch.as_tensor(m.data), size=m.shape, device=dev)
+
+    a_t, at_t = csr(a), csr(at)
+    wt = w.T.contiguous()
+    u = int(bt.n_distinct[blk])
+    k3 = {"ms": cuda_ms(lambda: tk.coo_tail_forward(bt, blk, w), 200),
+          "device_ms": device_ms(lambda: tk.coo_tail_forward(bt, blk, w), 50, ("coo_forward",)),
+          "plain_ms": cuda_ms(lambda: tk.coo_tail_forward_reference(bt, blk, w), 50),
+          "library_ms": cuda_ms(lambda: torch.sparse.mm(a_t, wt), 200),
+          **roofline(12 * c + 4 * u + 4 * bt.batch, 2 * c, F32_FLOPS)}
+    k4 = {"ms": cuda_ms(lambda: tk.coo_tail_outer(bt, blk, gc), 200),
+          "device_ms": device_ms(lambda: tk.coo_tail_outer(bt, blk, gc), 50, ("coo_outer",)),
+          "plain_ms": cuda_ms(lambda: tk.coo_tail_outer_reference(bt, blk, gc), 50),
+          "library_ms": cuda_ms(lambda: torch.sparse.mm(at_t, gc), 200),
+          **roofline(12 * c + 4 * bt.batch + 4 * bt.n_cols, 2 * c, F32_FLOPS)}
+    return k3, k4, c, u
+
+
+def phase_tail(rng, dev, csr, seed):
+    from sgdnet_tpu_torch.core.sparse import BlockCOO, HybridCSR
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+
+    # (a) the probes' own shapes: one block of E = 11520 true entries over
+    # B = 8192 rows and p = 47000 Zipf columns
+    B, p, E = 8192, 47000, 11520
+    zipf = (np.arange(p) + 10.0) ** -1.15
+    cols = np.searchsorted(np.cumsum(zipf) / zipf.sum(), rng.random(E)).clip(0, p - 1).astype(np.int32)
+    rows = np.sort(rng.integers(0, B, E)).astype(np.int32)
+    bt4 = BlockCOO.from_arrays(rows[None], cols[None], rng.standard_normal((1, E)).astype(np.float32), B, p,
+                               counts=[E], device=dev)
+    rel4, err4, w4, gc4 = _tail_block_check(tk, bt4, 0, rng, dev, "probe shape")
+    k3_4, k4_4, _, u4 = _tail_times(tk, bt4, 0, w4, gc4, dev)
+    print(f"  K3/K4 at the probes' shape (p 47000, E 11520, B 8192, k 1; {u4} distinct columns): rel err "
+          f"{rel4:.3e} (bound 1e-5), bits identical over two runs")
+    for name, r in (("K3 forward", k3_4), ("K4 outer", k4_4)):
+        print(f"    {name}: kernel {r['ms']:.4f} ms a call ({_fmt(r['device_ms'])} on the device), twin "
+              f"{r['plain_ms']:.4f} ms, torch.sparse.mm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    # (b) slice C's tail as fit() packs it: split, the row shuffle, pad, pack
+    th, _ = HybridCSR.split_columns(csr, coverage=SLICE_C["hybrid_coverage"], max_head=SLICE_C["hybrid_max_head"],
+                                    memory_budget=SLICE_C["hybrid_memory_budget"], head_dtype="bfloat16", device=dev)
+    tail = th.tail
+    th = None
+    n = csr.shape[0]
+    n_pad = -(-n // B) * B
+    rperm = torch.as_tensor(np.random.default_rng(seed + 0x5EED).permutation(n), device=dev)
+    bt = BlockCOO.from_padded(tail.take_rows(rperm).pad_rows(n_pad), B)
+    worst_rel, worst_err = rel4, err4
+    for blk in range(bt.n_blocks):
+        rel, err, w, gc = _tail_block_check(tk, bt, blk, rng, dev, "slice C")
+        worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
+    blk = int(torch.argmax(bt.counts))
+    k3, k4, c, u = _tail_times(tk, bt, blk, w, gc, dev)
+    counts = bt.counts.cpu().numpy()
+    print(f"  K3/K4 on slice C's {bt.n_blocks} blocks (B 8192, p 47000, E {bt.rows.shape[1]}, true entries "
+          f"{counts.min()}-{counts.max()}): worst rel err {worst_rel:.3e} (bound 1e-5), bits identical over two runs")
+    for name, r in (("K3 forward", k3), ("K4 outer", k4)):
+        print(f"    {name}, block {blk} ({c} entries, {u} distinct columns): kernel {r['ms']:.4f} ms a call "
+              f"({_fmt(r['device_ms'])} on the device), twin "
+              f"{r['plain_ms']:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+    extra = {"max_abs_err": worst_err, "max_rel_err": worst_rel, "block_entries": c}
+    return ({**k3, **extra, "probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"]},
+            {**k4, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"]})
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K2 at slice C's width
+# ---------------------------------------------------------------------------
+
+
+def phase_k2_wide(rng, dev, seed):
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+
+    n_pad, D, B, k = 106496, 16384, 8192, 1
+    torch.manual_seed(seed)
+    head = torch.randn((n_pad, D), device=dev, dtype=torch.bfloat16)
+    start = n_pad - B  # the last block: the largest offsets
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    w = t(rng.standard_normal((k, D)) / np.sqrt(D))
+    args = (head, start, w, t(0.1 * rng.standard_normal((B, k))), t(rng.random((B, k)) < 0.5),
+            t(0.1 * rng.standard_normal((B, k))), t(rng.random(B) < 0.9), "binomial")
+    g, corr = hk.fused_head_step_at(*args)
+    g_ref, corr_ref = hk.fused_head_step_reference(*args)
+    torch.cuda.synchronize()
+    eg, ec = float((g - g_ref).abs().max()), float((corr - corr_ref).abs().max())
+    cmax = float(corr_ref.abs().max())
+    ok = eg <= 3e-2 and ec <= 2e-2 * max(cmax, 1.0)
+    print(f"  K2 binomial bf16 n_pad={n_pad} D={D} B={B} k=1 at start {start}: max|dg|={eg:.3e} "
+          f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound g 3e-2, corr 2e-2*max|corr|) {'ok' if ok else 'FAIL'}")
+    check(ok, "K2 disagrees with its twin at slice C's width")
+    ms = cuda_ms(lambda: hk.fused_head_step_at(*args), 20)
+    plain_ms = cuda_ms(lambda: hk.fused_head_step_reference(*args), 20)
+    xb = head[start:start + B]
+    wt = w.to(torch.bfloat16).T.contiguous()
+    gct = torch.zeros((k, B), device=dev, dtype=torch.bfloat16)
+    two_ms = cuda_ms(lambda: (torch.mm(xb, wt, out_dtype=torch.float32),
+                              torch.mm(gct, xb, out_dtype=torch.float32)), 20)
+    # the bf16 block once, w and the (B, k) operands in, g and corr out
+    b = roofline(2 * B * D + 4 * (2 * k * D + 4 * B * k + B), 4 * B * D * k, BF16_FLOPS)
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, ("head_step_tile", "head_corr_reduce"))
+    print(f"  K2 time there: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the device), plain torch {plain_ms:.4f} "
+          f"ms, the two bf16 torch.mm products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"max_abs_err": max(eg, ec), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "two_products_ms": two_ms, "device_ms": dev_ms}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the sparse slices
+# ---------------------------------------------------------------------------
+
+
+def _reset_launches():
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+
+    ek.saga_epoch.launches = 0
+    hk.fused_head_step_at.launches = 0
+    tk.coo_tail_forward.launches = 0
+    tk.coo_tail_outer.launches = 0
+
+
+def _launches() -> dict:
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+
+    return {"K1": ek.saga_epoch.launches, "K2": hk.fused_head_step_at.launches,
+            "K3": tk.coo_tail_forward.launches, "K4": tk.coo_tail_outer.launches}
+
+
+def _objective(f, x, y, sd):
+    """Per-lambda penalized objective of a binomial lasso fit on the
+    original data: mean log-loss + lambda |beta * sd|_1."""
+    lp = np.asarray(x @ f.beta[:, 0, :].T) + np.asarray(f.a0)[None, :]
+    loss = np.mean(np.logaddexp(0.0, lp) - y[:, None] * lp, axis=0)
+    return loss + f.lambda_ * np.abs(f.beta[:, 0, :] * sd[None, :]).sum(axis=1)
+
+
+def run_sparse_slice(csr, y, dev, seed, kw):
+    import sgdnet_tpu_torch as st
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = st.fit(csr, y, device=dev, seed=seed, **kw)
+    return f, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
+    """Where a short fit of the slice (2 lambdas, 4 epochs an attempt)
+    spends the device's time: torch.profiler over the whole fit() after a
+    warm-up fit; the busy share is the kernels' device time over the fit's
+    wall, and the top kernels by device time with their calls."""
+    import sgdnet_tpu_torch as st
+    from torch.profiler import ProfilerActivity, profile
+
+    short = dict(kw, nlambda=2, maxit=4)
+    st.fit(csr, y, device=dev, seed=seed, **short)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        f = st.fit(csr, y, device=dev, seed=seed, **short)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kern) / 1e6
+    top = [{"kernel": e.key[:60], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in
+           sorted(kern, key=dev_us, reverse=True)[:6]]
+    print(f"  slice {name} profile (a 2-lambda fit, {f.npasses} epochs, under torch.profiler): {wall:.3f} s wall, "
+          f"{f.stats['wall_time_s']:.3f} s path, device busy {busy:.3f} s = {busy / wall:.3f} of the wall [{card}]")
+    for t in top:
+        print(f"    {t['device_ms']:10.3f} ms  {t['calls']:6d} calls  {t['kernel']}")
+    return {"wall_s": wall, "path_s": f.stats["wall_time_s"], "epochs": f.npasses, "busy_s": busy,
+            "busy_share": busy / wall, "top": top}
+
+
+def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw, card):
+    import sgdnet_tpu_torch as st
+
+    lay = f.stats["layout"]
+    k2 = kw["hybrid_head_dtype"] == "bfloat16"
+    n = csr.shape[0]
+    print(f"  slice {name} ({n} x {csr.shape[1]}, {lay['head_dtype']} head {lay['head_width']} wide, "
+          f"B {kw['batch_size']}, {len(f.lambda_)} lambdas): launches K2 {launches['K2']}, K3 {launches['K3']}, "
+          f"K4 {launches['K4']} [{card}]")
+    check(f.stats["tail_kernel"] is True and launches["K3"] > 0 and launches["K4"] > 0,
+          f"slice {name} did not run through K3 / K4")
+    check(f.stats["head_kernel"] is k2 and (launches["K2"] > 0) is k2,
+          f"slice {name}: K2 {'did not run' if k2 else 'ran'}")
+    check(np.isfinite(f.beta).all() and np.isfinite(f.dev_ratio).all(), f"slice {name}: non-finite path")
+    dr = f.dev_ratio
+    check(dr[-1] > dr[0] and np.all(np.diff(dr) >= -1e-3), f"slice {name}: dev_ratio does not rise: {dr}")
+    path = f.stats["wall_time_s"]
+    nnz_s = f.npasses * n * 76 / path
+    print(f"  slice {name} through the kernels: {wall:.3f} s fit wall, {path:.3f} s path, {wall - path:.3f} s set-up, "
+          f"{f.npasses} epochs, {nnz_s:.4g} nnz/s on the path, peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    plain_kw = {k: v for k, v in kw.items() if k != "nlambda"}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fp = st.fit(csr, y, device=dev, seed=seed, lambda_path=f.lambda_, use_pallas=False, use_tail_kernel=False,
+                **plain_kw)
+    wall_p = time.perf_counter() - t0
+    peak_p = torch.cuda.max_memory_allocated()
+    check(fp.stats["head_kernel"] is False and fp.stats["tail_kernel"] is False, f"plain slice {name} ran a kernel")
+    path_p = fp.stats["wall_time_s"]
+    nnz_p = fp.npasses * n * 76 / path_p
+    print(f"  slice {name} on plain torch ops: {wall_p:.3f} s fit wall, {path_p:.3f} s path, {wall_p - path_p:.3f} s "
+          f"set-up, {fp.npasses} epochs, {nnz_p:.4g} nnz/s on the path, peak {peak_p / 2**30:.2f} GiB [{card}]")
+    ok, op = _objective(f, csr, y, sd), _objective(fp, csr, y, sd)
+    rel = float(np.max(np.abs(ok - op) / np.abs(op)))
+    print(f"  slice {name} penalized objective per lambda, kernels vs plain: max rel diff {rel:.3e} (bound 1e-4); "
+          f"objective {ok.round(6)}; dev_ratio {dr.round(4)}; return codes {f.return_codes.tolist()}")
+    check(rel <= 1e-4, f"slice {name}: the kernels' path disagrees with the plain path")
+    prof = profile_slice(name, csr, y, dev, seed, kw, card)
+    return {"profile": prof, "wall_s": wall, "path_s": path, "setup_s": wall - path, "epochs": f.npasses, "nnz_per_s": nnz_s,
+            "peak_bytes": peak, "head_width": lay["head_width"], "launches": launches, "plain_wall_s": wall_p,
+            "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p, "plain_peak_bytes": peak_p,
+            "objective_max_rel_diff": rel}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
@@ -368,28 +726,68 @@ def main(argv=None) -> int:
     print("phase 4: K1 vs twin")
     k1 = phase_k1(rng, dev)
 
-    print("phases 5-6: the main path (slice A through K1, slice B through K2)")
-    from sgdnet_tpu_torch.solver import epoch_kernel as ek
-    from sgdnet_tpu_torch.solver import head_kernel as hk
+    print("phase 7: K3 / K4 vs twins")
+    from sgdnet_tpu_torch.core.sparse import scipy_column_stats
 
-    ek.saga_epoch.launches = 0
-    hk.fused_head_step_at.launches = 0
+    t0 = time.perf_counter()
+    csr, y_sp = make_sparse_binomial(seed=args.seed)
+    sd = scipy_column_stats(csr)[1]
+    print(f"  slice C/D data: {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} nonzeros after summing duplicates, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    k3, k4 = phase_tail(rng, dev, csr, args.seed)
+    print("phase 8: K2 vs twin at slice C's width")
+    k2w = phase_k2_wide(rng, dev, args.seed)
+
+    print("phases 5, 6, 9, 10: the paths, each with the launch counts set to 0 just before it")
+    launches = {}
+    _reset_launches()
     fit_a, wall_a = run_slice_a(dev)
+    launches["A"] = _launches()
+    _reset_launches()
     fit_b, wall_b, xt, y = run_slice_b(dev, args.seed)
-    k1_launches, k2_launches = ek.saga_epoch.launches, hk.fused_head_step_at.launches
-    print(f"  launches in the main path: K1 {k1_launches}, K2 {k2_launches}")
+    launches["B"] = _launches()
+    print(f"  launches: slice A {launches['A']}, slice B {launches['B']}")
     print("phase 5: slice A")
-    slice_a = check_slice_a(fit_a, wall_a, k1_launches, dev, card)
+    slice_a = check_slice_a(fit_a, wall_a, launches["A"]["K1"], dev, card)
     print("phase 6: slice B")
-    slice_b = check_slice_b(fit_b, wall_b, k2_launches, xt, y, dev, card, args.seed)
-    print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b}))
+    slice_b = check_slice_b(fit_b, wall_b, launches["B"]["K2"], xt, y, dev, card, args.seed)
+    fit_a = fit_b = xt = None
+    print("phase 9: slice C")
+    _reset_launches()
+    fit_c, wall_c, peak_c = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_C)
+    launches["C"] = _launches()
+    slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], csr, y_sp, sd, dev, args.seed, SLICE_C,
+                                 card)
+    fit_c = None
+    print("phase 10: slice D")
+    _reset_launches()
+    fit_d, wall_d, peak_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
+    launches["D"] = _launches()
+    slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], csr, y_sp, sd, dev, args.seed, SLICE_D,
+                                 card)
+    print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
+                      "slice_c": slice_c, "slice_d": slice_d}))
 
+    def by_path(key, paths):
+        return {"launches": sum(launches[p][key] for p in paths),
+                "launches_by_path": {p: launches[p][key] for p in paths}}
+
+    tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
     print(json.dumps({"kernels": [
         {"name": "saga_epoch (K1)", "route": "cuda", "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
-         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", "launches": k1_launches, **k1},
-        {"name": "fused_head_step_at (K2)", "route": "cuda", "source": "sgdnet_tpu_torch/csrc/head_step.cu",
-         "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265", "launches": k2_launches, **k2},
+         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", "A"), **k1},
+        {"name": "fused_head_step_at (K2), f32 D=784 k=10 B=4096", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
+         **by_path("K2", "B"), **k2},
+        {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
+         **by_path("K2", "C"), **k2w},
+        {"name": "coo_tail_forward (K3)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
+         **by_path("K3", "CD"), **k3},
+        {"name": "coo_tail_outer (K4)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
+         **by_path("K4", "CD"), **k4},
     ]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -1,23 +1,30 @@
-"""Model-fitting front end (twin of sgdnet_tpu/api/fit.py, dense path).
+"""Model-fitting front end (twin of sgdnet_tpu/api/fit.py).
 
-Input validation, response encoding, feature standardization, lambda-path
-construction, the K1/K2 kernel gates, solver dispatch and output assembly
-into an `SgdnetFit`.  Every tensor is created on the fit's `device`.
+Input validation, sparse ingestion (scipy input into a PaddedCSR or a
+HybridCSR with a BlockCOO tail), response encoding, feature
+standardization, lambda-path construction, the K1/K2 kernel gates, solver
+dispatch and output assembly into an `SgdnetFit`.  Every tensor is created
+on the fit's `device`, which defaults to the card.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from sgdnet_tpu_torch.core.sparse import (
+    BlockCOO, HybridCSR, PaddedCSR, as_head_dtype, canonical_csr, materialize_int8_head, scipy_column_stats,
+    scipy_row_sq_norms,
+)
 from sgdnet_tpu_torch.families import get_family, lambda_max_offset
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel
 from sgdnet_tpu_torch.solver.saga import SagaState, SolverConfig, fit_path, init_state, uses_head_kernel
 from sgdnet_tpu_torch.solver.stepsize import power_iteration_sq_norm, saga_step_sizes
+from sgdnet_tpu_torch.utils.device import resolve_device
 
 FAMILIES = ("gaussian", "binomial", "poisson", "multinomial", "mgaussian")
 
@@ -50,7 +57,8 @@ class SgdnetFit:
     #: `warm_state=` to resume
     final_state: object = field(default=None, repr=False)
     #: wall_time_s, epochs, nnz, nnz_per_s, layout, device, and which
-    #: kernels ran (epoch_kernel = K1, head_kernel = K2)
+    #: kernels ran (epoch_kernel = K1, head_kernel = K2, tail_kernel = the
+    #: BlockCOO tail ops K3 / K4)
     stats: dict | None = field(default=None, repr=False)
 
     @property
@@ -109,14 +117,25 @@ def as_torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+def _issparse(x) -> bool:
+    try:
+        import scipy.sparse as sp
+    except ImportError:
+        return False
+    return sp.issparse(x)
 
 
 def _not_in_slice(name: str, item: str):
     raise NotImplementedError(f"{name} is not ported to sgdnet_tpu_torch yet (ROADMAP Queue 1 item {item})")
+
+
+def _layout_stats(x) -> dict:
+    if isinstance(x, HybridCSR):
+        return {"kind": "hybrid", "head_width": x.n_head, "head_dtype": str(x.head.dtype),
+                "blk_tail": x.blk_tail is not None}
+    if isinstance(x, PaddedCSR):
+        return {"kind": "padded_csr", "row_width": x.row_width}
+    return {"kind": "dense"}
 
 
 def _weighted_column_stats(x: torch.Tensor, weights: torch.Tensor):
@@ -172,44 +191,45 @@ def fit(
     lambda_chunk: int | None = None,
     step_backoff: bool = True,
     device=None,
+    use_tail_kernel: bool = True,
 ) -> SgdnetFit:
     """Fit an elastic-net regularized GLM path with batched SAGA.
 
     The keywords and their meaning are those of `sgdnet_tpu.fit` (see its
-    docstring), on a dense design.  Additions: `device` (a torch device;
-    None picks "cuda" when available, else "cpu") on which every tensor of
-    the fit is created.
+    docstring).  `x` is a dense matrix (numpy or torch) or a scipy sparse
+    matrix: with more than 512 columns, or `hybrid=True`, the latter
+    becomes a HybridCSR (a dense head of the most frequent columns, f32,
+    bf16 or int8 by `hybrid_head_dtype`, and a sparse tail, packed per
+    block as a BlockCOO under block sampling), else a PaddedCSR.  Addition:
+    `device` (a torch device) on which every tensor of the fit is created;
+    None means the CUDA card and raises RuntimeError when there is none.
 
     The kernel switches keep the JAX package's names:
     `use_epoch_kernel` selects K1, the hand-written CUDA whole-epoch kernel
     (None: on for dense f32 CUDA fits within its gate; True: on wherever
     the gate admits the problem, running its plain torch twin on the CPU);
     `use_pallas` selects K2, the hand-written CUDA fused head step, for
-    block sampling (default off; on the CPU the twin runs).
+    block sampling (default: on for a bf16 HybridCSR head under block
+    sampling on CUDA, else off; on the CPU the twin runs).  The BlockCOO
+    tail ops run K3 / K4 (hand-written CUDA) whenever the tail is packed
+    and the fit is on CUDA, their twins on the CPU; `use_tail_kernel=False`
+    (a port-only switch, for comparisons) runs the twins on any device.
 
     Not ported yet, and raising NotImplementedError: `mesh`, `screen`
-    other than False, the `hybrid*` layout options, `sparse_mode`,
-    scipy-sparse `x`, and `lambda_chunk`.
+    other than False, `hybrid_max_head="auto"` and `lambda_chunk`.
     """
-    # ---- keywords outside the dense slice ----
+    # ---- keywords outside the slice ----
     if mesh is not None:
         _not_in_slice("mesh (data-parallel fits)", "9")
     if screen is not False:
         _not_in_slice("screen", "11")
-    if (hybrid is not None or hybrid_coverage != 0.9 or hybrid_max_head != 16384
-            or hybrid_memory_budget != 2e9 or hybrid_head_dtype is not None):
-        _not_in_slice("the hybrid dense-head/sparse-tail layout", "6")
-    if sparse_mode is not None:
-        _not_in_slice("sparse_mode", "6")
+    if isinstance(hybrid_max_head, str):
+        _not_in_slice(f"hybrid_max_head={hybrid_max_head!r} (the layout planner, whose constants are TPU "
+                      "measurements)", "7")
     if lambda_chunk is not None:
         _not_in_slice("lambda_chunk", "5 (relay workaround, not ported)")
-    try:
-        import scipy.sparse as sp
-
-        if sp.issparse(x):
-            _not_in_slice("scipy-sparse x", "6")
-    except ImportError:
-        pass
+    if sparse_mode not in (None, "densify", "gather"):
+        raise ValueError("sparse_mode must be 'densify' or 'gather'")
 
     # ---- validation ----
     if family not in FAMILIES:
@@ -222,11 +242,44 @@ def fit(
         raise ValueError("maximum number of iterations cannot be negative or zero.")
 
     dtype = as_torch_dtype(dtype)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     tens = dict(dtype=dtype, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
+    head_dtype = as_head_dtype(hybrid_head_dtype)
 
-    if isinstance(x, torch.Tensor):
+    # ---- the design matrix ----
+    col_perm = None  # hybrid column permutation: new column j is original col_perm[j]
+    head_nnz = None  # int8 head in nonzero form, rebuilt shuffled and padded below
+    pre_std = None  # (mean, sd) in original column order when standardized on the host
+    pre_row_sq = None  # host row norms of the standardized design (int8 ingestion)
+    is_sparse = _issparse(x)
+    if is_sparse:
+        xs = canonical_csr(x)
+        if np.isnan(xs.data).any():
+            raise ValueError("NA values are not allowed.")
+        split_kw = dict(coverage=hybrid_coverage, max_head=hybrid_max_head, dtype=dtype,
+                        memory_budget=hybrid_memory_budget, device=dev)
+        use_hybrid = hybrid if hybrid is not None else xs.shape[1] > 512
+        if use_hybrid and head_dtype == torch.int8:
+            # int8 ingestion on the host: column stats, row norms and the
+            # standardization fused into the quantization; the head crosses
+            # to the device as its nonzeros
+            if standardize:
+                w_host = None if sample_weight is None else np.asarray(sample_weight, np.float64)
+                pre_std = scipy_column_stats(xs, w_host)
+                pre_row_sq = scipy_row_sq_norms(xs, *pre_std)
+            else:
+                pre_row_sq = scipy_row_sq_norms(xs)
+            x, col_perm = HybridCSR.split_columns(xs, head_dtype=torch.int8, std_stats=pre_std, head_form="nnz",
+                                                  **split_kw)
+            head_nnz = x.head
+            x = replace(x, head=materialize_int8_head(head_nnz, device=dev))
+        elif use_hybrid:
+            x, col_perm = HybridCSR.split_columns(xs, head_dtype=head_dtype, **split_kw)
+        else:
+            x = PaddedCSR.from_scipy(xs, dtype=dtype, device=dev)
+        xs = None
+    elif isinstance(x, torch.Tensor):
         x_in = x.detach()
         if x_in.ndim != 2:
             raise ValueError("x must be a 2-D matrix")
@@ -238,7 +291,8 @@ def fit(
             raise ValueError("x must be a 2-D matrix")
         if x_in.dtype != object and np.issubdtype(x_in.dtype, np.floating) and np.isnan(x_in).any():
             raise ValueError("NA values are not allowed.")
-    x = torch.as_tensor(x_in).to(**tens)
+    if not is_sparse:
+        x = torch.as_tensor(x_in).to(**tens)
     n_samples, n_features = x.shape
     if n_samples == 0:
         raise ValueError("the predictor matrix (x) is empty.")
@@ -289,6 +343,16 @@ def fit(
         upper_np = np.broadcast_to(np.asarray(upper_limits, dtype=np.float64), (n_features,)).copy()
         if (upper_np < 0).any():
             raise ValueError("upper_limits must be >= 0 (coefficients start at zero)")
+
+    if col_perm is not None:  # user vectors are in the original column order
+        if pf_np is not None:
+            pf_np = pf_np[col_perm]
+        if excl_mask is not None:
+            excl_mask = excl_mask[col_perm]
+        if lower_np is not None:
+            lower_np = lower_np[col_perm]
+        if upper_np is not None:
+            upper_np = upper_np[col_perm]
 
     if pf_np is not None:
         # rescale: mean over non-excluded features = 1
@@ -358,10 +422,29 @@ def fit(
         raise ValueError("sample weights sum to zero")
     weights64 = weights.to(torch.float64)
 
-    # ---- feature standardization ----
+    # ---- feature standardization: dense x centered and scaled; sparse x
+    # scale-only in its tail, the centering carried as the term xc ----
+    xc = None
+    w_stats = None if sample_weight is None else torch.as_tensor(weights_np, **f64)
     if standardize:
-        x_center, x_scale = _weighted_column_stats(x, weights)
-        x = ((x.to(torch.float64) - x_center) / x_scale).to(dtype)
+        if pre_std is not None:  # the int8 head was standardized on the host
+            m_o, s_o = pre_std
+            x_center = torch.as_tensor(m_o[col_perm], **f64)
+            x_scale = torch.as_tensor(s_o[col_perm], **f64)
+            xc_np = m_o[col_perm] / s_o[col_perm]
+            xc_np[: x.n_head] = 0.0
+            xc = torch.as_tensor(xc_np, **f64).to(dtype)
+        elif isinstance(x, HybridCSR):
+            x_center, x_scale = x.column_stats(w_stats)
+            x, xc = x.standardize(x_center, x_scale, donate=True)  # fit built the head: overwrite it
+            xc = xc.to(dtype)
+        elif is_sparse:
+            x_center, x_scale = x.column_stats(w_stats)
+            x = x.scale_columns(x_scale)
+            xc = (x_center / x_scale).to(dtype)
+        else:
+            x_center, x_scale = _weighted_column_stats(x, weights)
+            x = ((x.to(torch.float64) - x_center) / x_scale).to(dtype)
     else:
         x_center = torch.zeros((n_features,), **f64)
         x_scale = torch.ones((n_features,), **f64)
@@ -424,9 +507,13 @@ def fit(
     l1s = alpha * lambdas / max_scale
 
     # ---- step sizes ----
-    per_row = torch.sum(x.to(torch.float64) ** 2, dim=1)
-    max_sq = float(torch.max(per_row * (weights > 0).to(torch.float64)))
-    top_sq = float(power_iteration_sq_norm(x, seed=seed)) / w_total if batch_size > 1 else None
+    if pre_row_sq is not None:
+        max_sq = float(np.max(pre_row_sq * (weights_np > 0)))
+    else:
+        # a sparse layout's norms are those of its scaled, centered rows
+        per_row = x.row_squared_norms(xc) if is_sparse else torch.sum(x.to(torch.float64) ** 2, dim=1)
+        max_sq = float(torch.max(per_row * (weights > 0).to(torch.float64)))
+    top_sq = float(power_iteration_sq_norm(x, seed=seed, x_center_scaled=xc)) / w_total if batch_size > 1 else None
     gammas = saga_step_sizes(max_sq, top_sq, l2s, w_total, batch_size, intercept, fam.L_scaling)
 
     # ---- pad rows to a multiple of batch_size ----
@@ -437,6 +524,7 @@ def fit(
     # Box limits stay on the step path.
     ek_ok = (
         use_epoch_kernel is not False
+        and not is_sparse
         and not debug
         and warm_state is None
         and box is None
@@ -458,17 +546,33 @@ def fit(
     if sampling == "block":
         # shuffle rows once (seed-deterministic, as in the JAX package) so
         # contiguous blocks are random samples even for ordered input
-        rperm = torch.as_tensor(np.random.default_rng(seed + 0x5EED).permutation(n_samples), device=dev)
-        x = x[rperm]
+        rperm_np = np.random.default_rng(seed + 0x5EED).permutation(n_samples)
+        rperm = torch.as_tensor(rperm_np, device=dev)
+        if head_nnz is not None:  # the head is rebuilt from its shuffled nonzeros below
+            x = replace(x, tail=x.tail.take_rows(rperm))
+            head_nnz = head_nnz.take_rows(rperm_np)
+        elif is_sparse:
+            x = x.take_rows(rperm)
+        else:
+            x = x[rperm]
         y_proc = y_proc[rperm]
         weights = weights[rperm]
         if offs64 is not None:
             offs64 = offs64[rperm]
 
     offs_dev = None if offs64 is None else offs64.to(dtype)
+    if head_nnz is not None and (sampling == "block" or n_pad > n_samples):
+        # one scatter builds the int8 head shuffled and padded; the
+        # unshuffled one is dropped first, so one head is resident at a time
+        tail, scale = x.tail.pad_rows(n_pad), x.head_scale
+        x = None
+        x = HybridCSR(materialize_int8_head(head_nnz, n_pad, device=dev), tail, n_pad, n_features, head_scale=scale)
+    elif is_sparse:
+        x = x.pad_rows(n_pad)
     if n_pad > n_samples:
         extra = n_pad - n_samples
-        x = torch.cat([x, torch.zeros((extra, n_features), **tens)])
+        if not is_sparse:
+            x = torch.cat([x, torch.zeros((extra, n_features), **tens)])
         y_proc = torch.cat([y_proc, torch.zeros((extra, y_proc.shape[1]), **tens)])
         weights = torch.cat([weights, torch.zeros((extra,), **tens)])
         if offs_dev is not None:
@@ -493,8 +597,21 @@ def fit(
     else:
         null_dev_scaled = float(fam.null_deviance(y_proc.to(torch.float64), intercept, weights.to(torch.float64)))
 
+    # block sampling + hybrid layout: the tail's true nonzeros packed per block
+    if sampling == "block" and isinstance(x, HybridCSR):
+        x = replace(x, blk_tail=BlockCOO.from_padded(x.tail, batch_size))
+
     if intercept_decay is None:
-        intercept_decay = 1.0  # the 0.01 damping is a sparse-layout default
+        # the reference's sparse damping, but not for poisson: its exp link
+        # makes every rate exponentially sensitive to the intercept
+        intercept_decay = 0.01 if (is_sparse and family != "poisson") else 1.0
+    if sparse_mode is None:
+        sparse_mode = "densify" if n_features <= 8192 else "gather"
+    if use_pallas is None:
+        # K2 by default where the JAX package runs its Pallas kernel: a bf16
+        # hybrid head under block sampling, on the card
+        use_pallas = (sampling == "block" and isinstance(x, HybridCSR) and x.head.dtype == torch.bfloat16
+                      and dev.type == "cuda")
 
     config = SolverConfig(
         batch_size=batch_size,
@@ -503,33 +620,36 @@ def fit(
         intercept_decay=intercept_decay,
         g_sum_refresh=True,
         g_sum_refresh_every=g_sum_refresh_every,
+        sparse_mode=sparse_mode,
         sampling=sampling,
         step_backoff=step_backoff,
         debug=debug,
         use_pallas=bool(use_pallas),
         use_epoch_kernel=ek_ok and sampling == "block",
+        use_tail_kernel=use_tail_kernel,
     )
 
     t0 = time.perf_counter()
     state, n_iter, results = fit_path(
         x, y_proc, weights, gammas, l1s, l2s, thresh, state0, fam, penalty, config,
-        offs=offs_dev, pf=pf_dev, box=box, seed=seed,
+        offs=offs_dev, pf=pf_dev, box=box, seed=seed, xc=xc,
     )
     wall = time.perf_counter() - t0  # fit_path returns host arrays: synced
 
     # ---- rescale to original units ----
     w_path = np.asarray(results.w, dtype=np.float64)  # (nl, k, p)
-    nnz_per_epoch = n_pad * n_features
+    nnz_per_epoch = x.total_nnz() if is_sparse else n_pad * n_features
     epochs = int(n_iter)
     stats = {
         "wall_time_s": wall,
         "epochs": epochs,
         "nnz": nnz_per_epoch * max(epochs, 1),
         "nnz_per_s": nnz_per_epoch * max(epochs, 1) / max(wall, 1e-9),
-        "layout": {"kind": "dense"},
+        "layout": _layout_stats(x),
         "device": str(dev),
         "epoch_kernel": config.use_epoch_kernel,
         "head_kernel": not config.use_epoch_kernel and uses_head_kernel(x, fam, config),
+        "tail_kernel": isinstance(x, HybridCSR) and x.blk_tail is not None and use_tail_kernel,
     }
     b_path = np.asarray(results.intercept, dtype=np.float64)  # (nl, k)
     x_scale_np = x_scale.cpu().numpy()
@@ -547,6 +667,10 @@ def fit(
         a0 = a0 + y_center_np[None, :] - np.einsum("j,lkj->lk", x_center_np, beta)
     if family == "multinomial":  # intercepts re-centered to sum 0
         a0 = a0 - a0.mean(axis=1, keepdims=True)
+    if col_perm is not None:  # undo the hybrid column permutation
+        unperm = np.empty_like(beta)
+        unperm[:, :, col_perm] = beta
+        beta = unperm
 
     dev_path = np.asarray(results.deviance, dtype=np.float64)
     if null_dev_scaled != 0.0:
@@ -614,11 +738,18 @@ def fit(
         upper_limits=upper_limits,
         exclude=exclude,
         poisson_smoothness=poisson_smoothness,
+        hybrid=hybrid,
+        hybrid_coverage=hybrid_coverage,
+        hybrid_max_head=hybrid_max_head,
+        hybrid_memory_budget=hybrid_memory_budget,
+        hybrid_head_dtype=hybrid_head_dtype,
+        sparse_mode=sparse_mode,
         g_sum_refresh_every=g_sum_refresh_every,
         use_pallas=use_pallas,
         use_epoch_kernel=use_epoch_kernel,
         intercept_decay=intercept_decay,
         step_backoff=step_backoff,
         device=dev,
+        use_tail_kernel=use_tail_kernel,
     )
     return fit_obj

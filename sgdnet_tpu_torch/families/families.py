@@ -23,8 +23,15 @@ import torch
 from sgdnet_tpu_torch.core.linalg import clamp, column_mean, column_sd, logsumexp
 
 
-def _xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x.T @ y in float64; returns (p, m)."""
+def _xty(x, y: torch.Tensor) -> torch.Tensor:
+    """x.T @ y in float64 for dense, PaddedCSR or HybridCSR x; returns (p, m)."""
+    from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
+
+    if isinstance(x, (PaddedCSR, HybridCSR)):
+        # a bf16 or int8 head must not truncate y: matvec_T multiplies the
+        # head in its own type and sums in at least f32
+        dtype = x.values.dtype if isinstance(x, PaddedCSR) else x.head.dtype
+        return x.matvec_T(y.to(torch.promote_types(dtype, torch.float32))).to(torch.float64)
     return x.T.to(torch.float64) @ y.to(torch.float64)
 
 

@@ -1,5 +1,4 @@
-"""Batched SAGA engine on torch tensors (twin of sgdnet_tpu/solver/saga.py,
-dense branches).
+"""Batched SAGA engine on torch tensors (twin of sgdnet_tpu/solver/saga.py).
 
 Minibatch SAGA: each step takes B samples, computes their linear
 predictors and the rank-B coefficient update as two matrix products, and
@@ -12,6 +11,14 @@ path is a host loop over lambdas and epochs with one scalar sync per epoch
 for the convergence test.  Two hand-written kernels replace the plain step
 where their gates allow: K1 (solver/epoch_kernel.py) runs a whole epoch
 per launch, K2 (solver/head_kernel.py) fuses the dense part of a step.
+
+The design matrix is dense, a PaddedCSR (the 'densify' or 'gather'
+`sparse_mode`) or a HybridCSR (core/sparse.py): a dense head driven by
+matrix products (bf16 heads multiply in bf16, int8 heads fold their
+scales into w, both summing in the fit's dtype) and a sparse tail.  Under
+block sampling the tail's ops go through the BlockCOO kernels K3 / K4
+(solver/tail_kernel.py).  Standardized sparse data stays scale-only; the
+centering rides as the correction term `xc` (zero on head columns).
 
 Sampling is pluggable: `fit_path` takes `order_fn(lam_idx, attempt,
 epoch) -> LongTensor`, a permutation of the T = n_pad/B blocks (block
@@ -30,9 +37,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
 from sgdnet_tpu_torch.families.families import Family
 from sgdnet_tpu_torch.penalties.penalties import Penalty
-from sgdnet_tpu_torch.solver import head_kernel
+from sgdnet_tpu_torch.solver import head_kernel, tail_kernel
 
 
 class SagaState(NamedTuple):
@@ -59,6 +67,8 @@ class SolverConfig:
     g_sum_refresh: bool = True
     #: refresh cadence in epochs (1 = every epoch)
     g_sum_refresh_every: int = 1
+    #: 'densify' or 'gather' (PaddedCSR x only)
+    sparse_mode: str = "densify"
     #: record the epoch loss trace
     debug: bool = False
     #: use the fused head-step kernel K2 for the step (block sampling,
@@ -72,6 +82,9 @@ class SolverConfig:
     step_backoff: bool = True
     #: run whole epochs with the epoch kernel K1 (solver/epoch_kernel.py)
     use_epoch_kernel: bool = False
+    #: BlockCOO tail ops through K3 / K4 (solver/tail_kernel.py); False runs
+    #: their plain torch versions on any device (the comparison path)
+    use_tail_kernel: bool = True
 
 
 def np_dtype(dtype: torch.dtype):
@@ -113,14 +126,104 @@ def _set_rows(a, sel, vals, B: int) -> None:
         a[sel] = vals
 
 
-def _dataset_loss(x, y, weights, w, intercept, family: Family, offs=None, report: bool = True):
+def _csr_batch_predict(csr: PaddedCSR, w, sel, B: int):
+    ib = _rows(csr.indices, sel, B).long()  # (B, L)
+    vb = _rows(csr.values, sel, B)
+    return torch.einsum("bl,blk->bk", vb.to(w.dtype), w.T[ib])
+
+
+def _csr_batch_outer(csr: PaddedCSR, g_change, sel, B: int):
+    """Tail/CSR scatter part of the rank-B update: (k, p)."""
+    ib = _rows(csr.indices, sel, B).long()
+    vb = _rows(csr.values, sel, B)
+    k = g_change.shape[1]
+    contrib = (vb[:, :, None].to(g_change.dtype) * g_change[:, None, :]).reshape(-1, k)
+    corr_t = torch.zeros((csr.n_cols, k), dtype=g_change.dtype, device=g_change.device)
+    return corr_t.index_add_(0, ib.reshape(-1), contrib).T
+
+
+def _use_blk_tail(x, sel, B: int) -> bool:
+    """The BlockCOO tail ops (K3 / K4) apply when the batch is a block start
+    of the size the tail was packed for."""
+    return isinstance(x, HybridCSR) and x.blk_tail is not None and isinstance(sel, int) and x.blk_tail.batch == B
+
+
+def _tail_predict(x: HybridCSR, w, sel, B: int, kernels: bool = True):
+    if _use_blk_tail(x, sel, B):
+        fn = tail_kernel.coo_tail_forward if kernels else tail_kernel.coo_tail_forward_reference
+        return fn(x.blk_tail, sel // B, w.contiguous())
+    return _csr_batch_predict(x.tail, w, sel, B)
+
+
+def _tail_outer(x: HybridCSR, g_change, sel, B: int, kernels: bool = True):
+    if _use_blk_tail(x, sel, B):
+        fn = tail_kernel.coo_tail_outer if kernels else tail_kernel.coo_tail_outer_reference
+        return fn(x.blk_tail, sel // B, g_change.contiguous())
+    return _csr_batch_outer(x.tail, g_change, sel, B)
+
+
+def _batch_predict(x, xc, w, sel, B: int, kernels: bool = True):
+    """Linear predictors of the selected rows, (B, k), with the centering
+    correction lp -= w . xc."""
+    if isinstance(x, HybridCSR):
+        d = x.n_head
+        lp = x.head_forward(_rows(x.head, sel, B), w[:, :d], w.dtype) + _tail_predict(x, w, sel, B, kernels)
+    elif isinstance(x, PaddedCSR):
+        lp = _csr_batch_predict(x, w, sel, B)
+    else:
+        lp = _rows(x, sel, B) @ w.T
+    if xc is not None:
+        lp = lp - w @ xc.to(w.dtype)
+    return lp
+
+
+def _batch_outer(x, xc, g_change, sel, B: int, sparse_mode: str, kernels: bool = True):
+    """corr[k, j] = sum_b g_change[b, k] x_eff[b, j], x_eff the centered,
+    scaled row: the rank-B coefficient update."""
+    if isinstance(x, HybridCSR):
+        d = x.n_head
+        corr = _tail_outer(x, g_change, sel, B, kernels)
+        corr[:, :d] += x.head_backward(_rows(x.head, sel, B), g_change, g_change.dtype)
+    elif isinstance(x, PaddedCSR):
+        if sparse_mode == "densify":
+            ib = _rows(x.indices, sel, B).long()
+            vb = _rows(x.values, sel, B)
+            rows = torch.arange(B, device=ib.device)[:, None].expand(ib.shape)
+            xb = torch.zeros((B, x.n_cols), dtype=vb.dtype, device=vb.device).index_put_((rows, ib), vb,
+                                                                                         accumulate=True)
+            corr = g_change.T @ xb.to(g_change.dtype)
+        else:
+            corr = _csr_batch_outer(x, g_change, sel, B)
+    else:
+        corr = g_change.T @ _rows(x, sel, B)
+    if xc is not None:
+        corr = corr - torch.outer(torch.sum(g_change, dim=0), xc.to(corr.dtype))
+    return corr
+
+
+def _dataset_loss(x, y, weights, w, intercept, family: Family, offs=None, report: bool = True, xc=None,
+                  block: int = 1024, kernels: bool = True):
     """Weighted total loss over the dataset (0-d tensor).  `report=True`
-    uses the family's exact reporting loss, `report=False` the solver loss."""
-    lp = x @ w.T + intercept
-    if offs is not None:
-        lp = lp + offs
+    uses the family's exact reporting loss, `report=False` the solver loss.
+    A sparse layout is read in row blocks of `block` (halved until it
+    divides n_pad), so no head-wide temporary is made."""
     loss_fn = family.loss_report if report else family.loss
-    return torch.sum(loss_fn(lp, y) * weights)
+    if not isinstance(x, (PaddedCSR, HybridCSR)):
+        lp = x @ w.T + intercept
+        if offs is not None:
+            lp = lp + offs
+        return torch.sum(loss_fn(lp, y) * weights)
+    n_pad = y.shape[0]
+    block = min(block, n_pad)
+    while n_pad % block != 0:
+        block = max(block // 2, 1)
+    total = torch.zeros((), dtype=w.dtype, device=w.device)
+    for start in range(0, n_pad, block):
+        lp = _batch_predict(x, xc, w, start, block, kernels) + intercept
+        if offs is not None:
+            lp = lp + offs[start : start + block]
+        total = total + torch.sum(loss_fn(lp, y[start : start + block]) * weights[start : start + block])
+    return total
 
 
 class _Scalars(NamedTuple):
@@ -147,46 +250,69 @@ def _scalars(gamma, l1, l2, decay: float, dt) -> _Scalars:
 
 def uses_head_kernel(x, family: Family, config: SolverConfig) -> bool:
     """The K2 gate: `use_pallas`, block sampling (the kernel takes a block
-    start), and the Hopper `supported` check (f32/bf16 head, shapes, and a
-    family the kernel has a gradient for — never poisson)."""
+    start), a dense design or a HybridCSR head (never a PaddedCSR), and
+    the Hopper `supported` check on the head's width and type (f32/bf16;
+    an int8 head takes the plain step) and the family (never poisson)."""
+    if isinstance(x, PaddedCSR):
+        return False
+    head = x.head if isinstance(x, HybridCSR) else x
     return (
         config.use_pallas
         and config.sampling == "block"
-        and head_kernel.supported(config.batch_size, x.shape[1], family.n_classes, x.dtype, family.name)
+        and head_kernel.supported(config.batch_size, head.shape[1], family.n_classes, head.dtype, family.name)
     )
 
 
 def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, config: SolverConfig,
-               offs=None, pf=None, box=None):
+               offs=None, pf=None, box=None, xc=None):
     """Return `step(state, scal, sel) -> state`.  The returned state shares
     the input's g_mem, which the step updates in place (the epoch owns a
     private copy)."""
     B = config.batch_size
+    hybrid = isinstance(x, HybridCSR)
+    kernels = config.use_tail_kernel
 
     def step_pallas(state: SagaState, scal: _Scalars, sel):
+        # K2 takes the FULL head and the block start, and lp_extra carries
+        # everything but the head's product: the tail forward, the
+        # intercept, the offsets and the centering term
         yb = _rows(y, sel, B)
         wb = _rows(weights, sel, B)
         g_mem_b = _rows(state.g_mem, sel, B)
-        lp_extra = state.intercept.expand(B, family.n_classes)
+        if hybrid:
+            d = x.n_head
+            lp_extra = _tail_predict(x, state.w, sel, B, kernels) + state.intercept
+            head, w_head = x.head, state.w[:, :d]
+        else:
+            lp_extra = state.intercept.expand(B, family.n_classes)
+            head, w_head = x, state.w
         if offs is not None:
             lp_extra = lp_extra + _rows(offs, sel, B)
-        g, corr = head_kernel.fused_head_step_at(x, sel, state.w, lp_extra, yb, g_mem_b, wb, family.name)
+        if xc is not None:
+            lp_extra = lp_extra - state.w @ xc.to(state.w.dtype)
+        g, corr_head = head_kernel.fused_head_step_at(head, sel, w_head, lp_extra, yb, g_mem_b, wb, family.name)
         g = g.to(state.w.dtype)
         g_change = g - g_mem_b
         _set_rows(state.g_mem, sel, g, B)
-        return _finish_step(state, scal, wb, g_change, corr.to(state.w.dtype))
+        if hybrid:
+            corr = _tail_outer(x, g_change, sel, B, kernels)
+            corr[:, :d] += corr_head.to(corr.dtype)
+            if xc is not None:  # xc is zero on head columns
+                corr = corr - torch.outer(torch.sum(g_change, dim=0), xc.to(corr.dtype))
+        else:
+            corr = corr_head.to(state.w.dtype)
+        return _finish_step(state, scal, wb, g_change, corr)
 
     def step_xla(state: SagaState, scal: _Scalars, sel):
         yb = _rows(y, sel, B)
         wb = _rows(weights, sel, B)
-        xb = _rows(x, sel, B)
-        lp = xb @ state.w.T + state.intercept
+        lp = _batch_predict(x, xc, state.w, sel, B, kernels) + state.intercept
         if offs is not None:
             lp = lp + _rows(offs, sel, B)
         g = family.gradient(lp, yb) * wb[:, None]  # weighted; pad rows -> 0
         g_change = g - _rows(state.g_mem, sel, B)  # (B, k)
         _set_rows(state.g_mem, sel, g, B)
-        corr = g_change.T @ xb
+        corr = _batch_outer(x, xc, g_change, sel, B, config.sparse_mode, kernels)
         return _finish_step(state, scal, wb, g_change, corr)
 
     def _finish_step(state: SagaState, scal: _Scalars, wb, g_change, corr):
@@ -219,22 +345,28 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     return step_pallas if uses_head_kernel(x, family, config) else step_xla
 
 
-def _refresh_g_sum(x, w_total: float, state: SagaState) -> SagaState:
-    """Exact recompute g_sum = (1/W) X^T g_mem (one pass over x)."""
-    g_sum = (state.g_mem.T @ x) / w_total
+def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None) -> SagaState:
+    """Exact recompute g_sum = (1/W) X_eff^T g_mem (one pass over x)."""
+    if isinstance(x, (PaddedCSR, HybridCSR)):
+        g_sum = x.matvec_T(state.g_mem).T.contiguous() / w_total
+    else:
+        g_sum = (state.g_mem.T @ x) / w_total
     col_sum = torch.sum(state.g_mem, dim=0)
+    if xc is not None:
+        g_sum = g_sum - torch.outer(col_sum, xc.to(g_sum.dtype)) / w_total
     return state._replace(g_sum=g_sum, g_sum_intercept=col_sum / w_total)
 
 
-def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverConfig, offs=None, pf=None, box=None):
+def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverConfig, offs=None, pf=None, box=None,
+                xc=None):
     n_pad = y.shape[0]
     B = config.batch_size
     if n_pad % B != 0:
         raise ValueError("n_pad must be a multiple of batch_size")
     n_batches = n_pad // B
-    step = _make_step(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf, box=box)
+    step = _make_step(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf, box=box, xc=xc)
     every = config.g_sum_refresh_every
-    dt = np_dtype(x.dtype)
+    dt = np_dtype(y.dtype)
 
     def epoch(state: SagaState, order, gamma, l1, l2, it=None) -> SagaState:
         scal = _scalars(gamma, l1, l2, config.intercept_decay, dt)
@@ -243,12 +375,12 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
             # contiguous blocks in random order (rows pre-shuffled by fit())
             sels = [int(s) * B for s in order.tolist()]
         else:
-            idx = order.to(x.device).reshape(n_batches, B)
+            idx = order.to(y.device).reshape(n_batches, B)
             sels = list(idx)
         for sel in sels:
             state = step(state, scal, sel)
         if config.g_sum_refresh and (every <= 1 or it is None or (it + 1) % every == 0):
-            state = _refresh_g_sum(x, w_total, state)
+            state = _refresh_g_sum(x, w_total, state, xc)
         return state
 
     return epoch
@@ -312,6 +444,7 @@ def fit_path(
     box=None,
     seed: int = 0,
     order_fn=None,
+    xc=None,
 ):
     """Fit the whole lambda path with warm starts.
 
@@ -319,17 +452,18 @@ def fit_path(
     each lambda runs epochs until max|dw| <= tol * max|w| or max_iter, with
     the divergence guard and (config.step_backoff) the halved-step retries
     of the JAX package.  `gammas`, `l1s`, `l2s` are per-lambda sequences
-    and `tol` a scalar; they are rounded to x's dtype.  Returns
-    (final state, total epochs, PathResults of numpy arrays).
+    and `tol` a scalar; they are rounded to the fit's dtype (y's).  `x` is
+    dense, a PaddedCSR or a HybridCSR, with `xc` its centering term.
+    Returns (final state, total epochs, PathResults of numpy arrays).
     """
     with _fp32_matmul():
         return _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty, config,
-                              offs, pf, box, seed, order_fn)
+                              offs, pf, box, seed, order_fn, xc)
 
 
 def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty, config, offs, pf, box,
-                   seed, order_fn):
-    dt = np_dtype(x.dtype)
+                   seed, order_fn, xc):
+    dt = np_dtype(y.dtype)
     gammas = np.asarray(gammas, dt).reshape(-1)
     l1s = np.asarray(l1s, dt).reshape(-1)
     l2s = np.asarray(l2s, dt).reshape(-1)
@@ -357,7 +491,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         def intercept_of(s):
             return s.ivec[0]
     else:
-        epoch_fn = _make_epoch(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf, box=box)
+        epoch_fn = _make_epoch(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf, box=box, xc=xc)
 
         def unpad(s):
             return s
@@ -393,7 +527,8 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
                 rel = dt(0.0) if finite else dt(np.inf)
             if config.debug:
                 s = unpad(state)
-                losses[it] = float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs)) / w_total
+                losses[it] = float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, xc=xc,
+                                                  kernels=config.use_tail_kernel)) / w_total
             w_prev = state.w
             it += 1
         if np.isinf(rel):  # a divergence exit must read as NOT converged
@@ -405,11 +540,13 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
 
     def _dev(st, report=True):
         s = unpad(st)
-        return 2.0 * _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=report)
+        return 2.0 * _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=report, xc=xc,
+                                   kernels=config.use_tail_kernel)
 
     def _lmean(st):
         s = unpad(st)
-        return _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=False) / w_total
+        return _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=False, xc=xc,
+                             kernels=config.use_tail_kernel) / w_total
 
     def _objective(st, lmean, l1, l2):
         """Penalized objective: mean loss + l1*P1(w) + l2/2*||w||_pf^2 —

@@ -15,23 +15,45 @@ import numpy as np
 import torch
 
 
-def power_iteration_sq_norm(x: torch.Tensor, n_iter: int = 30, seed: int = 0, v0: torch.Tensor | None = None):
-    """lambda_max(X^T X) of a dense (n, p) x by power iteration.
+def power_iteration_sq_norm(x, n_iter: int = 30, seed: int = 0, v0: torch.Tensor | None = None,
+                            x_center_scaled: torch.Tensor | None = None):
+    """lambda_max(X^T X) by power iteration; x dense (n, p), PaddedCSR or
+    HybridCSR.  With `x_center_scaled` (the sparse standardized path) the
+    operator is X - 1 c^T, applied without densifying.
 
     The start vector is standard normal from a `torch.Generator` seeded
     with `seed`, unless `v0` is given (the lockstep tests inject the JAX
     package's start vector).  Returns a 0-d tensor on x's device.
     """
-    p = x.shape[1]
+    from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
+
+    if isinstance(x, (PaddedCSR, HybridCSR)):
+        p = x.n_cols
+        # a bf16 or int8 head must not drag the iteration vectors below f32
+        dtype = torch.promote_types(x.values.dtype if isinstance(x, PaddedCSR) else x.head.dtype, torch.float32)
+        device = x.tail.values.device if isinstance(x, HybridCSR) else x.values.device
+        c = None if x_center_scaled is None else x_center_scaled.to(dtype)
+
+        def matvec(v):
+            xv = x.matmul_dense(v.reshape(-1, 1).to(dtype))[:, 0]
+            if c is not None:
+                xv = xv - torch.dot(c.to(xv.dtype), v.to(xv.dtype))
+            ytx = x.matvec_T(xv)
+            if c is not None:
+                ytx = ytx - torch.sum(xv) * c.to(xv.dtype)
+            return ytx.to(dtype)
+
+    else:
+        p, dtype, device = x.shape[1], x.dtype, x.device
+
+        def matvec(v):
+            return x.T @ (x @ v)
+
     if v0 is None:
         gen = torch.Generator().manual_seed(seed)
         v0 = torch.randn(p, generator=gen, dtype=torch.float64)
-    v = v0.to(device=x.device, dtype=x.dtype)
+    v = v0.to(device=device, dtype=dtype)
     v = v / torch.linalg.vector_norm(v)
-
-    def matvec(v):
-        return x.T @ (x @ v)
-
     for _ in range(n_iter):
         w = matvec(v)
         v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)

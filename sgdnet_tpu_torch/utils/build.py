@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The kernels are compiled at first use with `nvcc` for Hopper
-(`sm_90a`) into a shared library with a plain C interface, which is
-loaded with ctypes: the build needs nothing but nvcc (no ninja, no
-PyTorch headers).  The library lands in `sgdnet_tpu_torch/_build/`,
+(`sm_90a`), one nvcc process per source, all started together, and linked
+into a shared library with a plain C interface, which is loaded with
+ctypes: the build needs nothing but nvcc (no ninja, no PyTorch headers).  The library lands in `sgdnet_tpu_torch/_build/`,
 keyed by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads at once.  Nothing here runs at import time.
 
@@ -24,11 +24,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("epoch_kernel.cu", "head_step.cu")
+SOURCES = ("epoch_kernel.cu", "head_step.cu", "coo_tail.cu")
 HEADERS = ("common.h",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -42,6 +42,8 @@ _SIGNATURES = {
         [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
         ctypes.c_int,
     ),
+    "sgd_coo_tail_forward": ([_P, _P, _P, _P, _I, _I, _I, _LL, _P, _P], ctypes.c_int),
+    "sgd_coo_tail_outer": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P], ctypes.c_int),
     "sgd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -70,6 +72,29 @@ def _source_hash(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _compile(nvcc: str, out: str) -> None:
+    """Compile each source to an object in parallel, then link the library."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)] for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     if "lib" in _STATE:
@@ -80,16 +105,7 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = False
     if not os.path.exists(out):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, out)
+        _compile(nvcc, out)
         built = True
     lib = ctypes.CDLL(out)
     for name, (argtypes, restype) in _SIGNATURES.items():

@@ -8,19 +8,25 @@ machine that has only torch (tests/conftest.py needs jax, hence
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K2 as tests/test_pallas.py (f32: g atol 1e-5, corr atol 2e-3;
-bf16: g 3e-2, corr 2e-2 x max|corr|); K1 one epoch at 1e-5 x scale; fits
-through a kernel vs the plain step path on the card at 1e-4 x scale.
+bf16: g 3e-2, corr 2e-2 x max|corr|); K1 one epoch at 1e-5 x scale; K3 / K4
+at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
+across two runs; fits through a kernel vs the plain step path on the card
+at 1e-4 x scale.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import scipy.sparse as sp
+
 import sgdnet_tpu_torch as st
+from sgdnet_tpu_torch.core.sparse import BlockCOO, PaddedCSR
 from sgdnet_tpu_torch.families import get_family
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver import head_kernel as hk
+from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.solver.saga import SagaState
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +128,76 @@ def test_fit_through_kernels_matches_plain_path(dev, name, family):
     scale = max(1.0, np.abs(f_plain.beta).max())
     for f in (f_k1, f_k2):
         assert np.abs(f.beta - f_plain.beta).max() / scale < 1e-4
+
+
+def _zipf_tail(dev, dtype, n=4096, p=3000, per_row=9, B=1024, seed=0):
+    """A Zipf-column tail (columns recur within a block), packed per block."""
+    rng = np.random.default_rng(seed)
+    wz = (np.arange(p) + 10.0) ** -1.15
+    cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random((n, per_row))).clip(0, p - 1)
+    counts = rng.integers(0, per_row + 1, n)
+    keep = np.arange(per_row)[None, :] < counts[:, None]
+    rows = np.repeat(np.arange(n)[:, None], per_row, 1)[keep]
+    x = sp.csr_matrix((rng.normal(size=keep.sum()), (rows, cols[keep])), shape=(n, p))
+    x.sum_duplicates()
+    return BlockCOO.from_padded(PaddedCSR.from_scipy(x, dtype=dtype, device=dev), B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 3])
+def test_tail_kernels_match_twins(dev, dtype, k):
+    bt = _zipf_tail(dev, dtype)
+    rng = np.random.default_rng(k)
+    w = torch.tensor(rng.normal(size=(k, bt.n_cols)), dtype=dtype, device=dev)
+    gc = torch.tensor(rng.normal(size=(bt.batch, k)), dtype=dtype, device=dev)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for blk in range(bt.n_blocks):
+        before = (tk.coo_tail_forward.launches, tk.coo_tail_outer.launches)
+        f, o = tk.coo_tail_forward(bt, blk, w), tk.coo_tail_outer(bt, blk, gc)
+        assert (tk.coo_tail_forward.launches, tk.coo_tail_outer.launches) == (before[0] + 1, before[1] + 1)
+        f_ref, o_ref = tk.coo_tail_forward_reference(bt, blk, w), tk.coo_tail_outer_reference(bt, blk, gc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(f, f_ref, atol=tol * max(1.0, float(f_ref.abs().max())), rtol=0)
+        torch.testing.assert_close(o, o_ref, atol=tol * max(1.0, float(o_ref.abs().max())), rtol=0)
+        # no atomics: a second run gives the same bits
+        assert torch.equal(f, tk.coo_tail_forward(bt, blk, w)) and torch.equal(o, tk.coo_tail_outer(bt, blk, gc))
+
+
+def test_tail_kernels_reject_what_they_do_not_take(dev):
+    bt = _zipf_tail(dev, torch.float32, n=2048)
+    with pytest.raises(ValueError):
+        tk.coo_tail_forward(bt, 0, torch.zeros((1, bt.n_cols), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        tk.coo_tail_forward(bt, bt.n_blocks, torch.zeros((1, bt.n_cols), device=dev))
+    with pytest.raises(ValueError):
+        tk.coo_tail_outer(bt, 0, torch.zeros((bt.batch + 1, 1), device=dev))
+
+
+@pytest.mark.parametrize("head", ["bfloat16", "int8", "float32"])
+def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
+    """A hybrid fit on the card through K3 / K4 (and K2 on a bf16 / f32
+    head) vs the same fit on plain torch ops: the same batch orders, so the
+    paths differ by reassociation only, and meet at the solution within
+    1e-3 x scale, the fit's own tolerance (1e-2 on a bf16 head, whose w is
+    rounded to bf16 in every product)."""
+    rng = np.random.default_rng(4)
+    n, p = 6000, 2500
+    wz = (np.arange(p) + 10.0) ** -1.15
+    cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random((n, 20))).clip(0, p - 1)
+    x = sp.csr_matrix((rng.normal(size=n * 20), cols.ravel(), np.arange(0, n * 20 + 1, 20)), shape=(n, p))
+    x.sum_duplicates()
+    beta = rng.normal(size=p) * (rng.random(p) < 0.05)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x @ beta)))).astype(float)
+    common = dict(family="binomial", nlambda=4, lambda_min_ratio=0.1, batch_size=1024, sampling="block",
+                  hybrid_max_head=256, hybrid_coverage=0.8, hybrid_head_dtype=head, device=dev, maxit=60)
+    launches = (tk.coo_tail_forward.launches, tk.coo_tail_outer.launches, hk.fused_head_step_at.launches)
+    f_k = st.fit(x, y, use_pallas=head != "int8", **common)
+    assert f_k.stats["tail_kernel"] is True and f_k.stats["head_kernel"] is (head != "int8")
+    assert tk.coo_tail_forward.launches > launches[0] and tk.coo_tail_outer.launches > launches[1]
+    assert (hk.fused_head_step_at.launches > launches[2]) is (head != "int8")
+    f_p = st.fit(x, y, use_pallas=False, use_tail_kernel=False, lambda_path=f_k.lambda_,
+                 **{k: v for k, v in common.items() if k != "nlambda"})
+    assert f_p.stats["tail_kernel"] is False and f_p.stats["head_kernel"] is False
+    scale = max(1.0, np.abs(f_p.beta).max())
+    assert np.abs(f_k.beta - f_p.beta).max() / scale < (1e-2 if head == "bfloat16" else 1e-3)
+    assert np.isfinite(f_k.dev_ratio).all() and f_k.dev_ratio[-1] > f_k.dev_ratio[0]

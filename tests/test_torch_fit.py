@@ -142,6 +142,7 @@ def test_exact_refit_matches_jax(name):
     s = 0.5 * (fj.lambda_[2] + fj.lambda_[3])
     b = np.asarray(fj.predict(x[:10], s=s, type="link", exact=True, x=x, y=y))
     refit_kw = {k: v for k, v in kw.items() if k not in ("nlambda", "lambda_min_ratio")}
+    refit_kw["device"] = "cpu"
     a = _converted(fj).predict(x[:10], s=s, type="link", exact=True, x=x, y=y, **refit_kw)
     np.testing.assert_allclose(a, b, atol=1e-3 * max(1.0, np.abs(b).max()))
 
@@ -158,7 +159,7 @@ def test_warm_state_roundtrip(tmp_path):
     with np.load(tmp_path / "state.npz") as z:
         warm = state_from_numpy(z)
     fj2 = jst.fit(x, y, lambda_path=lams[4:], warm_state=fj1.final_state, **kw)
-    ft2 = tst.fit(x, y, lambda_path=lams[4:], warm_state=warm, **kw)
+    ft2 = tst.fit(x, y, lambda_path=lams[4:], warm_state=warm, device="cpu", **kw)
     assert ft2.stats["epoch_kernel"] is False  # a warm start runs the step path
     scale = max(1.0, np.abs(fj2.beta).max())
     np.testing.assert_allclose(ft2.beta, fj2.beta, atol=1e-3 * scale)

@@ -8,7 +8,9 @@ import isolation and the keywords outside the slice.
     agree at reassociation level, 1e-4 x scale, as tests/test_epoch_kernel.py
     and tests/test_pallas.py hold the Pallas kernels;
   * `import sgdnet_tpu_torch` never brings in jax or sgdnet_tpu;
-  * keywords outside the dense slice raise NotImplementedError.
+  * `device=None` means the card: without one, fit raises (every CPU run
+    here asks for device="cpu");
+  * keywords outside the ported slices raise NotImplementedError.
 """
 
 import os
@@ -26,7 +28,7 @@ from sgdnet_tpu_torch.solver import head_kernel as hk
 torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-COMMON = dict(thresh=1e-6, maxit=5000, dtype=np.float64)
+COMMON = dict(thresh=1e-6, maxit=5000, dtype=np.float64, device="cpu")
 
 
 def _check_golden(fit, g, key, skip, a0_tol=2e-3):
@@ -112,7 +114,7 @@ def test_epoch_kernel_matches_step_path(case):
         pf = np.ones(x.shape[1])
         pf[1] = 2.0
         kw = dict(kw, penalty_factor=pf)
-    common = dict(family=family, nlambda=8, sampling="block", dtype="float32", seed=3, **kw)
+    common = dict(family=family, nlambda=8, sampling="block", dtype="float32", seed=3, device="cpu", **kw)
     f_step = tst.fit(x, y, use_epoch_kernel=False, **common)
     f_ker = tst.fit(x, y, use_epoch_kernel=True, **common)
     assert f_step.stats["epoch_kernel"] is False and f_ker.stats["epoch_kernel"] is True
@@ -125,9 +127,9 @@ def test_epoch_kernel_gate_falls_back_on_options():
     never engages by default."""
     x, y = tst.load_heart()
     f = tst.fit(x, y, family="binomial", lower_limits=-1.0, upper_limits=1.0, nlambda=4, dtype="float32",
-                use_epoch_kernel=True)
+                use_epoch_kernel=True, device="cpu")
     assert f.stats["epoch_kernel"] is False
-    f = tst.fit(x, y, family="binomial", nlambda=4, dtype="float32")
+    f = tst.fit(x, y, family="binomial", nlambda=4, dtype="float32", device="cpu")
     assert f.stats["epoch_kernel"] is False and f.stats["device"] == "cpu"
 
 
@@ -139,7 +141,7 @@ def test_head_kernel_matches_step_path(family):
     y = (rng.random(256) < 1 / (1 + np.exp(-eta))).astype(float) if family == "binomial" else \
         np.argmax(np.stack([eta, -eta, 0.3 * eta], 1) + rng.gumbel(size=(256, 3)), axis=1)
     common = dict(family=family, nlambda=4, thresh=1e-5, maxit=300, batch_size=64, sampling="block",
-                  dtype="float32")
+                  dtype="float32", device="cpu")
     f_step = tst.fit(x, y, use_pallas=False, **common)
     launches = hk.fused_head_step_at.launches
     f_ker = tst.fit(x, y, use_pallas=True, lambda_path=f_step.lambda_, **common)
@@ -151,14 +153,14 @@ def test_head_kernel_matches_step_path(family):
 def test_head_kernel_never_serves_poisson():
     x, y = _poisson_data()
     f = tst.fit(x, y, family="poisson", nlambda=3, batch_size=32, sampling="block", use_pallas=True,
-                dtype="float32")
+                dtype="float32", device="cpu")
     assert f.stats["head_kernel"] is False and np.isfinite(f.beta).all()
 
 
 def test_epoch_counter_untouched_on_cpu():
     x, y = tst.load_wine()
     before = ek.saga_epoch.launches
-    f = tst.fit(x, y, family="multinomial", nlambda=3, dtype="float32", use_epoch_kernel=True)
+    f = tst.fit(x, y, family="multinomial", nlambda=3, dtype="float32", use_epoch_kernel=True, device="cpu")
     assert f.stats["epoch_kernel"] is True and ek.saga_epoch.launches == before
 
 
@@ -171,8 +173,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, sgdnet_tpu_torch, sgdnet_tpu_torch.utils.convert, sgdnet_tpu_torch.utils.build\n"
         "import sgdnet_tpu_torch.solver.epoch_kernel, sgdnet_tpu_torch.solver.head_kernel\n"
+        "import sgdnet_tpu_torch.solver.tail_kernel, sgdnet_tpu_torch.core.sparse, scipy.sparse as sp\n"
         "x, y = sgdnet_tpu_torch.load_wine()\n"
         "sgdnet_tpu_torch.fit(x, y, family='multinomial', nlambda=2, device='cpu')\n"
+        "sgdnet_tpu_torch.fit(sp.csr_matrix(x), y, family='multinomial', nlambda=2, hybrid=True, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sgdnet_tpu.'))"
         " or m == 'sgdnet_tpu')\n"
         "assert not bad, bad\n"
@@ -186,37 +190,59 @@ def test_import_leaves_jax_out():
     dict(mesh=object()),
     dict(screen=True),
     dict(screen="auto"),
-    dict(hybrid=True),
-    dict(hybrid_head_dtype="int8"),
+    dict(screen="auto", hybrid=True),
+    dict(hybrid_max_head="auto", hybrid_head_dtype="int8"),
     dict(hybrid_max_head="auto"),
-    dict(sparse_mode="gather"),
+    dict(lambda_chunk=4, sparse_mode="gather"),
     dict(lambda_chunk=4),
 ])
 def test_out_of_slice_keywords_raise(kw):
     x, y = tst.load_heart()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.fit(x, y, family="binomial", **kw)
+        tst.fit(x, y, family="binomial", device="cpu", **kw)
 
 
 def test_scipy_sparse_input_raises():
+    """scipy input is ported (tests/test_torch_sparse.py); what it still
+    raises for is the layout planner's head width."""
     import scipy.sparse as sp
 
     x, y = tst.load_heart()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.fit(sp.csr_matrix(x), y, family="binomial")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        tst.fit(sp.csr_matrix(x), y, family="binomial", hybrid_max_head="auto", device="cpu")
+    f = tst.fit(sp.csr_matrix(x), y, family="binomial", nlambda=3, device="cpu")
+    assert f.stats["layout"]["kind"] == "padded_csr" and np.isfinite(f.beta).all()
+
+
+def test_fit_without_a_card_raises(monkeypatch):
+    """device=None means the card: with no CUDA, fit raises RuntimeError
+    naming the missing device instead of running on the CPU, and so do the
+    layout builders."""
+    import scipy.sparse as sp
+
+    from sgdnet_tpu_torch.core.sparse import PaddedCSR
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y = tst.load_heart()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tst.fit(x, y, family="binomial", nlambda=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tst.fit(sp.csr_matrix(x), y, family="binomial", nlambda=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PaddedCSR.from_scipy(sp.csr_matrix(x))
 
 
 def test_fit_validation():
     x, y = tst.load_heart()
     with pytest.raises(ValueError):
-        tst.fit(x, y, family="cauchy")
+        tst.fit(x, y, family="cauchy", device="cpu")
     with pytest.raises(ValueError):
-        tst.fit(x, y, family="binomial", alpha=1.5)
+        tst.fit(x, y, family="binomial", alpha=1.5, device="cpu")
     with pytest.raises(ValueError):
-        tst.fit(x[:10], y, family="binomial")
+        tst.fit(x[:10], y, family="binomial", device="cpu")
     xn = x.copy()
     xn[0, 0] = np.nan
     with pytest.raises(ValueError, match="NA"):
-        tst.fit(xn, y, family="binomial")
+        tst.fit(xn, y, family="binomial", device="cpu")
     with pytest.raises(ValueError):
-        tst.fit(x, y, family="binomial", dtype="int32")
+        tst.fit(x, y, family="binomial", dtype="int32", device="cpu")
