@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
-  2. build both hand-written kernels from csrc/ and report the seconds;
+  2. build the hand-written kernels' four sources in csrc/ and report the
+     seconds;
   3. K2 (fused head step) against its plain torch twin at the dense
      multinomial shape n_pad=65536, D=784, B=4096, f32 and bf16;
   4. K1 (whole-epoch kernel) against its twin, one epoch on the bundled
@@ -27,12 +28,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      16384-wide hybrid head: K2 + K3 + K4 by default, held per lambda by
      penalized objective against the same fit on plain torch ops;
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
-     products are torch), held the same way.
-Each path (slices A, B, C, D) runs with the launch counts set to 0 just
-before it and read just after.  Then a JSON line with every number, one
-JSON line of the kernels, the card's name and power limit, and last
-{"ok": true, "device": {...}}.  The script needs the repository checkout
-and a CUDA device; it has no CPU path.
+     products are torch), held the same way;
+ 11. P1 (the whole-epoch prototype probe) against its twin over 2 epochs at
+     the probe's size (N 4224, P 128, B 32), identical bits over two runs,
+     its times beside K1's on abalone; then the probe's entry point
+     (sgdnet_tpu_torch.tools.bench_epoch_kernel, 200 epochs);
+ 12. P2 and P3 (the head-stream probes) against their twin on a seeded
+     106496 x 16384 bf16 head, per tile height and ring config, with the
+     full-head torch.sum ceiling; then their entry points
+     (tools.bench_head_dma, which also streams K2, and
+     tools.bench_dma_streams);
+ 13. slice E: slice D's data and settings with hybrid_max_head="auto", the
+     head width the port's layout planner picks from the card's constants
+     (K3 + K4 on the tail it leaves), held the same way, with the plan's
+     predicted epoch beside the measured one; then the same fit made afresh
+     at the plan's width, half and twice it, and the plan's width again,
+     each width's measured epoch beside the cost model's, which says whether
+     the plan's width is the fastest of the three.
+Each path (slices A-E and the three probe entry points) runs with the
+launch counts set to 0 just before it and read just after.  Then a JSON
+line with every number, one JSON line of the kernels, the card's name and
+power limit, and last {"ok": true, "device": {...}}.  The script needs
+the repository checkout and a CUDA device; it has no CPU path.
 """
 
 from __future__ import annotations
@@ -77,10 +94,18 @@ def roofline(nbytes: float, flops: float, peak: float) -> dict:
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _self_device_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+
+
 def device_ms(fn, reps: int, names) -> float | None:
-    """Device time per call of the kernels whose names contain one of
-    `names`, summed from torch.profiler over `reps` calls after a warm-up;
-    None when the profiler saw no device time for them."""
+    """Device time per call of fn, whose wrapper launches each kernel named
+    in `names` once: torch.profiler over `reps` calls after a warm-up, each
+    kernel's device time per recorded launch, summed over the kernels.  Per
+    recorded launch, not over `reps`: a profile can keep fewer kernel
+    records than launches, and their sum over `reps` then reads below the
+    kernel's bytes bound.  None when the profiler saw no device time for
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -89,9 +114,9 @@ def device_ms(fn, reps: int, names) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
-             for e in prof.key_averages() if any(nm in e.key for nm in names))
-    return us / reps / 1e3 if us > 0 else None
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and _self_device_us(e) > 0 and any(nm in e.key for nm in names)]
+    return sum(_self_device_us(e) / e.count for e in kern) / 1e3 if kern else None
 
 
 def _fmt(v) -> str:
@@ -173,7 +198,7 @@ def phase_k2(rng, dev):
     two_ms = cuda_ms(lambda: (xb @ w.T, gct @ xb), 50)
     # the block once, w, lp_extra / y / g_mem / wb in; g and corr out
     b = roofline(4 * (B * 784 + 2 * k * 784 + 4 * B * k + B), 4 * B * 784 * k, F32_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, ("head_step_tile", "head_corr_reduce"))
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, ("head_step_tile", "sum_partials"))
     print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the "
           f"device), plain torch {plain_ms:.4f} ms, the two torch.matmul products {two_ms:.4f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
@@ -428,6 +453,8 @@ SLICE_C = dict(family="binomial", alpha=1.0, nlambda=10, lambda_min_ratio=0.05, 
                hybrid_head_dtype="bfloat16", g_sum_refresh_every=4, hybrid_memory_budget=8e9)
 SLICE_D = dict(SLICE_C, hybrid_max_head=32768, hybrid_coverage=0.995, hybrid_head_dtype="int8",
                g_sum_refresh_every=8)
+#: the planner picks the head width (and the split: coverage 1.0)
+SLICE_E = dict(SLICE_D, hybrid_max_head="auto")
 
 
 # ---------------------------------------------------------------------------
@@ -567,7 +594,7 @@ def phase_k2_wide(rng, dev, seed):
                               torch.mm(gct, xb, out_dtype=torch.float32)), 20)
     # the bf16 block once, w and the (B, k) operands in, g and corr out
     b = roofline(2 * B * D + 4 * (2 * k * D + 4 * B * k + B), 4 * B * D * k, BF16_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, ("head_step_tile", "head_corr_reduce"))
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, ("head_step_tile", "sum_partials"))
     print(f"  K2 time there: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the device), plain torch {plain_ms:.4f} "
           f"ms, the two bf16 torch.mm products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": max(eg, ec), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
@@ -579,24 +606,23 @@ def phase_k2_wide(rng, dev, seed):
 # ---------------------------------------------------------------------------
 
 
-def _reset_launches():
+def _wrappers() -> dict:
     from sgdnet_tpu_torch.solver import epoch_kernel as ek
     from sgdnet_tpu_torch.solver import head_kernel as hk
     from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools import probe_kernels as pk
 
-    ek.saga_epoch.launches = 0
-    hk.fused_head_step_at.launches = 0
-    tk.coo_tail_forward.launches = 0
-    tk.coo_tail_outer.launches = 0
+    return {"K1": ek.saga_epoch, "K2": hk.fused_head_step_at, "K3": tk.coo_tail_forward, "K4": tk.coo_tail_outer,
+            "P1": pk.epoch_probe, "P2": pk.block_colsum, "P3": pk.block_colsum_pipelined}
+
+
+def _reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _launches() -> dict:
-    from sgdnet_tpu_torch.solver import epoch_kernel as ek
-    from sgdnet_tpu_torch.solver import head_kernel as hk
-    from sgdnet_tpu_torch.solver import tail_kernel as tk
-
-    return {"K1": ek.saga_epoch.launches, "K2": hk.fused_head_step_at.launches,
-            "K3": tk.coo_tail_forward.launches, "K4": tk.coo_tail_outer.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _objective(f, x, y, sd):
@@ -634,9 +660,7 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
-
+    dev_us = _self_device_us
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = [{"kernel": e.key[:60], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in
@@ -691,6 +715,200 @@ def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw,
             "peak_bytes": peak, "head_width": lay["head_width"], "launches": launches, "plain_wall_s": wall_p,
             "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p, "plain_peak_bytes": peak_p,
             "objective_max_rel_diff": rel}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: P1, the whole-epoch prototype probe
+# ---------------------------------------------------------------------------
+
+
+def phase_p1(rng, dev, k1):
+    from sgdnet_tpu_torch.tools import probe_kernels as pk
+
+    N, P, B = 4224, 128, 32
+    T = N // B
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    x, y, wt = t(rng.standard_normal((N, P))), t(rng.standard_normal((N, 8))), t(np.ones((N, 8)))
+    starts = [torch.as_tensor(rng.permutation(T) * B, dtype=torch.int32, device=dev) for _ in range(2)]
+
+    def two_epochs(fn):
+        state = [torch.zeros((8, P), device=dev), torch.zeros((N, 8), device=dev), torch.zeros((8, P), device=dev)]
+        for st in starts:
+            fn(st, x, y, wt, *state, B)
+        return state
+
+    a, b, ref = two_epochs(pk.epoch_probe), two_epochs(pk.epoch_probe), two_epochs(pk.epoch_probe_reference)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    rel = max(float((u - r).abs().max()) / float(r.abs().max()) for u, r in zip(a, ref))
+    err = max(float((u - r).abs().max()) for u, r in zip(a, ref))
+    print(f"  P1 two epochs at N {N}, P {P}, B {B}: max rel err in w, g_mem, g_sum {rel:.3e} (bound 1e-5), "
+          f"bits identical over two runs: {same}")
+    check(rel <= 1e-5 and same, "P1 disagrees with its twin or with itself")
+    state = two_epochs(pk.epoch_probe)
+    ms = cuda_ms(lambda: pk.epoch_probe(starts[0], x, y, wt, *state, B), 200)
+    plain_ms = cuda_ms(lambda: pk.epoch_probe_reference(starts[0], x, y, wt, *state, B), 3)
+    dev_ms = device_ms(lambda: pk.epoch_probe(starts[0], x, y, wt, *state, B), 50, ("epoch_probe",))
+    # x, the used lanes of y / wt / g_mem, w, g_sum and the starts once in;
+    # g_mem's lane, w and g_sum once out; two products a step
+    b = roofline(4 * (N * P + 3 * N + 2 * P + T) + 4 * (N + 2 * P), 4 * N * P, F32_FLOPS)
+    k1_ns = None if k1["device_ms"] is None else k1["device_ms"] / 131 * 1e6
+    p1_ns = None if dev_ms is None else dev_ms / T * 1e6
+    print(f"  P1 time an epoch ({T} steps): kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the device, "
+          f"{p1_ns if p1_ns is None else round(p1_ns, 1)} ns a step), twin {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.6f} ms ({b['bound_by']}); K1 on abalone: "
+          f"{k1_ns if k1_ns is None else round(k1_ns, 1)} ns a step of device time (131 steps)")
+    return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "device_ms": dev_ms, "ns_per_step_device": p1_ns, "k1_ns_per_step_device": k1_ns}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: P2 and P3, the head-stream probes
+# ---------------------------------------------------------------------------
+
+
+def _colsum_err(out, ref, head, start, B) -> float:
+    """max over columns of |out - ref| / sum |x|"""
+    absum = head[start:start + B].float().abs().sum(0)
+    return float(((out - ref).abs() / absum).max())
+
+
+def phase_p23(dev, seed):
+    from sgdnet_tpu_torch.tools import probe_kernels as pk
+    from sgdnet_tpu_torch.tools.bench_dma_streams import CONFIGS
+    from sgdnet_tpu_torch.tools.bench_head_dma import seeded_head
+
+    n_pad, D, B = 106496, 16384, 8192
+    head = seeded_head(n_pad, D, seed, dev)
+    start = n_pad - B  # the last block: the largest offsets
+    b = roofline(2 * B * D + 4 * D, B * D, F32_FLOPS)
+    lib_ms = cuda_ms(lambda: head[start:start + B].sum(0, dtype=torch.float32), 50)
+
+    def measure(name, fn, ref_fn, names, extra):
+        out = fn()
+        ref = ref_fn()
+        again = fn()
+        torch.cuda.synchronize()
+        rel = _colsum_err(out, ref, head, start, B)
+        same = torch.equal(out, again)
+        r = {**extra, "max_rel_err": rel, "max_abs_err": float((out - ref).abs().max()), "bits_identical": same,
+             "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(ref_fn, 10), "device_ms": device_ms(fn, 20, names),
+             **b, "library_ms": lib_ms}
+        r["gb_per_s"] = 2 * B * D / r["ms"] / 1e6
+        print(f"  {name}: max |err| / sum|x| {rel:.3e} (bound 1e-6), bits identical over two runs: {same}; "
+              f"{r['ms']:.4f} ms a call ({_fmt(r['device_ms'])} on the device), {r['gb_per_s']:.1f} GB/s; "
+              f"twin {r['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(rel <= 1e-6, f"{name} disagrees with its twin")
+        return r
+
+    p2 = [measure(f"P2 bt {bt}", lambda bt=bt: pk.block_colsum(head, start, B, bt),
+                  lambda bt=bt: pk.block_colsum_reference(head, start, B, bt), ("colsum_tile", "sum_partials"),
+                  {"bt": bt}) for bt in (256, 512, 1024)]
+    check(all(r["bits_identical"] for r in p2), "P2 gave different bits in two runs")
+    p3 = [measure(f"P3 n_buf {nb} chunk {cr} (strip {pk.pipeline_strip_width(nb, cr, D)} columns)",
+                  lambda nb=nb, cr=cr: pk.block_colsum_pipelined(head, start, B, nb, cr),
+                  lambda cr=cr: pk.block_colsum_reference(head, start, B, cr), ("colsum_pipelined",),
+                  {"n_buf": nb, "chunk_rows": cr, "strip_width": pk.pipeline_strip_width(nb, cr, D)})
+          for nb, cr in CONFIGS]
+    ceil_ms = cuda_ms(lambda: torch.sum(head, dtype=torch.float32), 10)
+    ceil = {"ms": ceil_ms, "gb_per_s": 2 * n_pad * D / ceil_ms / 1e6, **roofline(2 * n_pad * D + 4, n_pad * D,
+                                                                               F32_FLOPS)}
+    print(f"  the library call head[s:s+B].sum(0, dtype=float32): {lib_ms:.4f} ms; full-head torch.sum "
+          f"(3.489 GB): {ceil_ms:.4f} ms, {ceil['gb_per_s']:.1f} GB/s, bound {ceil['bound_ms']:.4f} ms")
+    head = None
+    torch.cuda.empty_cache()
+
+    def best(rows):
+        top = min(rows, key=lambda r: r["ms"])
+        return {**top, "configs": rows}
+
+    return best(p2), best(p3), ceil
+
+
+def run_probe_paths(dev, seed, launches):
+    """The three probe entry points as a user runs them, each with the
+    launch counts set to 0 just before it and read just after."""
+    from sgdnet_tpu_torch.tools import bench_dma_streams, bench_epoch_kernel, bench_head_dma
+
+    out = {}
+    for key, tool, kw in (("P1", bench_epoch_kernel, dict(twin_epochs=5)), ("H", bench_head_dma, {}),
+                          ("S", bench_dma_streams, {})):
+        _reset_launches()
+        t0 = time.perf_counter()
+        out[key] = tool.run(dev, seed, **kw)
+        launches[key] = _launches()
+        print(f"  {tool.__name__} ({time.perf_counter() - t0:.1f} s): {json.dumps(out[key])}")
+        torch.cuda.empty_cache()
+    check(launches["P1"]["P1"] > 0 and launches["H"]["P2"] > 0 and launches["H"]["K2"] > 0
+          and launches["S"]["P3"] > 0, f"a probe entry point launched no kernel: {launches}")
+    return out
+
+
+def planner_check(f, ceiling, k3, k4, card) -> dict:
+    """The plan slice E ran on, its predicted epoch beside the measured
+    one, and the planner's constants beside this run's measurements of
+    them: the full-head torch.sum rate, and K3 + K4's device time on slice
+    C's largest block over 4 x its entries."""
+    from sgdnet_tpu_torch.core import layout
+
+    plan = f.stats["layout_plan"]
+    check(plan is not None and f.stats["layout"]["head_width"] == plan["max_head"], "slice E ran without its plan")
+    ms_epoch = f.stats["wall_time_s"] / f.npasses * 1e3
+    stream = 2 * 106496 * 16384 / (ceiling["ms"] / 1e3)
+    elem = None
+    if k3["device_ms"] is not None and k4["device_ms"] is not None:
+        elem = (k3["device_ms"] + k4["device_ms"]) / 1e3 / (4 * k3["block_entries"])
+    predicted = plan["head_ms"] + plan["tail_ms"]
+    print(f"  slice E plan: D {plan['max_head']}, coverage {plan['coverage']:.4f}, break-even "
+          f"{plan['break_even_nnz']:.1f} nonzeros a column; predicted {plan['head_ms']:.4f} + {plan['tail_ms']:.4f} "
+          f"= {predicted:.4f} ms an epoch, measured {ms_epoch:.4f} ms an epoch ({ms_epoch / predicted:.1f}x) [{card}]")
+    print(f"  planner constants: STREAM_BYTES_PER_S {layout.STREAM_BYTES_PER_S:.4g} (this run {stream:.4g}), "
+          f"ELEM_OP_S {layout.ELEM_OP_S:.4g} (this run {elem if elem is None else f'{elem:.4g}'})")
+    return {**plan, "predicted_ms_per_epoch": predicted, "measured_ms_per_epoch": ms_epoch,
+            "stream_bytes_per_s_measured": stream, "elem_op_s_measured": elem,
+            "stream_bytes_per_s_constant": layout.STREAM_BYTES_PER_S, "elem_op_s_constant": layout.ELEM_OP_S}
+
+
+def model_epoch_ms(csr, width: int, kw) -> float:
+    """The planner's cost model (core/layout.py) at a given head width:
+    the head's stream plus the tail's element-ops, ms an epoch."""
+    from sgdnet_tpu_torch.core import layout
+
+    col_nnz = np.sort(np.bincount(csr.indices, minlength=csr.shape[1]))[::-1].astype(np.int64)
+    B = kw["batch_size"]
+    n_pad = -(-csr.shape[0] // B) * B
+    passes = 2.0 + 1.0 / kw["g_sum_refresh_every"]
+    head_s = passes * n_pad * width * 1 / layout.STREAM_BYTES_PER_S  # int8 head: 1 byte an element
+    tail_s = int(col_nnz[width:].sum()) * layout.TAIL_OPS_PER_ENTRY * layout.ELEM_OP_S
+    return (head_s + tail_s) * 1e3
+
+
+def planner_neighbours(csr, y, dev, seed, plan, card) -> list:
+    """Slice E through the same kernels at the plan's width, half of it
+    (rounded up to 128 columns) and twice it, coverage 1.0, each fit made
+    fresh in one sequence that times the plan's width first and last: each
+    width's measured ms an epoch beside the cost model's.  The model is
+    checked against the plan's own prediction at the plan's width first."""
+    d = plan["max_head"]
+    model_d = model_epoch_ms(csr, d, SLICE_E)
+    check(abs(model_d - (plan["head_ms"] + plan["tail_ms"])) <= 1e-9 * model_d,
+          f"the cost model here ({model_d} ms) is not the planner's ({plan['head_ms'] + plan['tail_ms']} ms)")
+    rows = []
+    for width in (d, -(-(d // 2) // 128) * 128, 2 * d, d):
+        f, _, _ = run_sparse_slice(csr, y, dev, seed, dict(SLICE_E, hybrid_max_head=width, hybrid_coverage=1.0))
+        check(f.stats["layout_plan"] is None and f.stats["layout"]["head_width"] == width
+              and f.stats["tail_kernel"] is True and np.isfinite(f.beta).all(),
+              f"slice E at width {width} did not run as asked: {f.stats['layout']}")
+        path = f.stats["wall_time_s"]
+        rows.append({"width": width, "plan": width == d, "epochs": f.npasses, "path_s": path,
+                     "ms_per_epoch": path / f.npasses * 1e3, "model_ms_per_epoch": model_epoch_ms(csr, width, SLICE_E)})
+        print(f"  slice E at D {width}{' (the plan)' if width == d else ''}: {path:.3f} s path, {f.npasses} epochs, "
+              f"{rows[-1]['ms_per_epoch']:.4f} ms an epoch measured, {rows[-1]['model_ms_per_epoch']:.4f} modelled "
+              f"[{card}]")
+    fastest = min(rows, key=lambda r: r["ms_per_epoch"])
+    print(f"  the fastest of the three widths is D {fastest['width']}"
+          f"{' (the plan)' if fastest['plan'] else ', not the plan'}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -765,14 +983,34 @@ def main(argv=None) -> int:
     launches["D"] = _launches()
     slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], csr, y_sp, sd, dev, args.seed, SLICE_D,
                                  card)
+    fit_d = None
+    torch.cuda.empty_cache()
+
+    print("phase 11: P1 vs twin")
+    p1 = phase_p1(rng, dev, k1)
+    print("phase 12: P2 / P3 vs twin")
+    p2, p3, ceiling = phase_p23(dev, args.seed)
+    print("phases 11, 12: the probe entry points, each with the launch counts set to 0 just before it")
+    probes = run_probe_paths(dev, args.seed, launches)
+
+    print("phase 13: slice E (the layout planner)")
+    _reset_launches()
+    fit_e, wall_e, peak_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
+    launches["E"] = _launches()
+    slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], csr, y_sp, sd, dev, args.seed, SLICE_E,
+                                 card)
+    slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
+    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], card)
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
-                      "slice_c": slice_c, "slice_d": slice_d}))
+                      "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
+                      "full_head_sum": ceiling}))
 
     def by_path(key, paths):
         return {"launches": sum(launches[p][key] for p in paths),
                 "launches_by_path": {p: launches[p][key] for p in paths}}
 
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
+    probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
         {"name": "saga_epoch (K1)", "route": "cuda", "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
          "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", "A"), **k1},
@@ -781,11 +1019,17 @@ def main(argv=None) -> int:
          **by_path("K2", "B"), **k2},
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
-         **by_path("K2", "C"), **k2w},
+         **by_path("K2", ["C", "H"]), **k2w},
         {"name": "coo_tail_forward (K3)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K3", "CD"), **k3},
+         **by_path("K3", "CDE"), **k3},
         {"name": "coo_tail_outer (K4)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K4", "CD"), **k4},
+         **by_path("K4", "CDE"), **k4},
+        {"name": "epoch_probe (P1)", "route": "cuda", "source": probe_src,
+         "replaces": "tools/bench_epoch_kernel.py:65", **by_path("P1", ["P1"]), **p1},
+        {"name": "block_colsum (P2), bf16 106496 x 16384, B 8192", "route": "cuda", "source": probe_src,
+         "replaces": "tools/bench_pallas_dma.py:61", **by_path("P2", ["H"]), **p2},
+        {"name": "block_colsum_pipelined (P3), bf16 106496 x 16384, B 8192", "route": "cuda",
+         "source": probe_src, "replaces": "tools/bench_dma_streams.py:96", **by_path("P3", ["S"]), **p3},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """sgdnet_tpu_torch — elastic-net GLMs via batched SAGA on PyTorch and CUDA.
 
 The PyTorch port of `sgdnet_tpu`, module for module, for NVIDIA Hopper
-GPUs: plain tensor code is torch, and the JAX package's two Pallas kernels
-are hand-written CUDA kernels (csrc/, built with nvcc at first use).  This
-package imports neither `jax` nor `sgdnet_tpu`.
+GPUs: plain tensor code is torch, and every Pallas kernel of the JAX
+package is a hand-written CUDA kernel (csrc/, built with nvcc at first
+use).  This package imports neither `jax` nor `sgdnet_tpu`.
 """
 
 from sgdnet_tpu_torch.api.fit import SgdnetFit, fit

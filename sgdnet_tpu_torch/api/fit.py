@@ -10,11 +10,12 @@ on the fit's `device`, which defaults to the card.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
 
 import numpy as np
 import torch
 
+from sgdnet_tpu_torch.core.layout import plan_layout
 from sgdnet_tpu_torch.core.sparse import (
     BlockCOO, HybridCSR, PaddedCSR, as_head_dtype, canonical_csr, materialize_int8_head, scipy_column_stats,
     scipy_row_sq_norms,
@@ -56,9 +57,10 @@ class SgdnetFit:
     #: final solver state (SagaState on the fit's device) — pass as
     #: `warm_state=` to resume
     final_state: object = field(default=None, repr=False)
-    #: wall_time_s, epochs, nnz, nnz_per_s, layout, device, and which
-    #: kernels ran (epoch_kernel = K1, head_kernel = K2, tail_kernel = the
-    #: BlockCOO tail ops K3 / K4)
+    #: wall_time_s, epochs, nnz, nnz_per_s, layout, device, which kernels
+    #: ran (epoch_kernel = K1, head_kernel = K2, tail_kernel = the BlockCOO
+    #: tail ops K3 / K4), and layout_plan (the planner's LayoutPlan as a
+    #: dict under hybrid_max_head="auto" on scipy input, else None)
     stats: dict | None = field(default=None, repr=False)
 
     @property
@@ -184,7 +186,7 @@ def fit(
     screen: bool | str = False,
     hybrid: bool | None = None,
     hybrid_coverage: float = 0.9,
-    hybrid_max_head: int = 16384,
+    hybrid_max_head: int | str = 16384,
     hybrid_memory_budget: float = 2e9,
     hybrid_head_dtype=None,
     g_sum_refresh_every: int = 1,
@@ -215,17 +217,24 @@ def fit(
     and the fit is on CUDA, their twins on the CPU; `use_tail_kernel=False`
     (a port-only switch, for comparisons) runs the twins on any device.
 
+    `hybrid_max_head="auto"` sizes the head of a scipy input with the
+    port's layout planner (core/layout.py, constants measured on the H100),
+    which then governs the split alone (coverage 1.0); its plan is
+    `stats["layout_plan"]`.  Other input falls back to 16384.  The model
+    prices every head at the bf16 stream rate and has no host term, so its
+    width is the model's optimum, not one found fastest on the card
+    (chip_smoke.py phase 13 times the widths either side of it).
+
     Not ported yet, and raising NotImplementedError: `mesh`, `screen`
-    other than False, `hybrid_max_head="auto"` and `lambda_chunk`.
+    other than False and `lambda_chunk`.
     """
     # ---- keywords outside the slice ----
     if mesh is not None:
         _not_in_slice("mesh (data-parallel fits)", "9")
     if screen is not False:
         _not_in_slice("screen", "11")
-    if isinstance(hybrid_max_head, str):
-        _not_in_slice(f"hybrid_max_head={hybrid_max_head!r} (the layout planner, whose constants are TPU "
-                      "measurements)", "7")
+    if isinstance(hybrid_max_head, str) and hybrid_max_head != "auto":
+        raise ValueError(f"hybrid_max_head must be an int or 'auto'; got {hybrid_max_head!r}")
     if lambda_chunk is not None:
         _not_in_slice("lambda_chunk", "5 (relay workaround, not ported)")
     if sparse_mode not in (None, "densify", "gather"):
@@ -246,6 +255,18 @@ def fit(
     tens = dict(dtype=dtype, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
     head_dtype = as_head_dtype(hybrid_head_dtype)
+
+    layout_plan = None
+    if hybrid_max_head == "auto":
+        # the cost-model planner (core/layout.py): the head width where the
+        # column-popularity curve crosses the dense-stream vs element-op
+        # break-even, capped by the head memory budget
+        hybrid_max_head = 16384  # for input that is not scipy-sparse
+        if _issparse(x):
+            layout_plan = plan_layout(x, batch_size=batch_size, head_itemsize=(head_dtype or dtype).itemsize,
+                                      g_sum_refresh_every=g_sum_refresh_every, hbm_budget=hybrid_memory_budget)
+            hybrid_max_head = layout_plan.max_head
+            hybrid_coverage = 1.0  # the planner's D governs the split
 
     # ---- the design matrix ----
     col_perm = None  # hybrid column permutation: new column j is original col_perm[j]
@@ -650,6 +671,7 @@ def fit(
         "epoch_kernel": config.use_epoch_kernel,
         "head_kernel": not config.use_epoch_kernel and uses_head_kernel(x, fam, config),
         "tail_kernel": isinstance(x, HybridCSR) and x.blk_tail is not None and use_tail_kernel,
+        "layout_plan": None if layout_plan is None else asdict(layout_plan),
     }
     b_path = np.asarray(results.intercept, dtype=np.float64)  # (nl, k)
     x_scale_np = x_scale.cpu().numpy()

@@ -1,4 +1,4 @@
-// Shared device helpers for the SAGA kernels (epoch_kernel.cu, head_step.cu).
+// Shared device helpers for the kernels of csrc/.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,5 +50,23 @@ __device__ __forceinline__ float elementwise_gradient(int family, float lp, floa
       return lp - y;
   }
 }
+
+namespace {
+
+// out[i] = sum over t < n_parts of part[t * n + i], in order of t: the
+// second stage of a split reduction whose first stage wrote one partial
+// row per tile.  The TPU grid accumulates in one scratch buffer across
+// sequential steps; Hopper CTAs run in no order, and this fixed-order sum
+// is the deterministic equivalent (no atomics).
+__global__ void sum_partials(const float* __restrict__ part, int n_parts, long long n,
+                             float* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int t = 0; t < n_parts; ++t) s += part[t * n + i];
+  out[i] = s;
+}
+
+}  // namespace
 
 }  // namespace sgd

@@ -117,16 +117,6 @@ __global__ void __launch_bounds__(HT) head_step_tile(
   }
 }
 
-// corr[i] = sum over tiles of part[t, i], in tile order
-__global__ void head_corr_reduce(const float* __restrict__ part, int n_tiles, long long kD,
-                                 float* __restrict__ corr) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= kD) return;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += part[t * kD + i];
-  corr[i] = s;
-}
-
 template <typename T>
 cudaError_t launch(const void* head, long long start, int D, int k, int B, int bt,
                    const float* w, const float* lpe, const float* yb, const float* gm,
@@ -142,7 +132,7 @@ cudaError_t launch(const void* head, long long start, int D, int k, int B, int b
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long kD = (long long)k * D;
-  head_corr_reduce<<<(unsigned)((kD + 255) / 256), 256, 0, s>>>(part, n_tiles, kD, corr);
+  sgd::sum_partials<<<(unsigned)((kD + 255) / 256), 256, 0, s>>>(part, n_tiles, kD, corr);
   return cudaGetLastError();
 }
 

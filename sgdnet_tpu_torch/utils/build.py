@@ -24,7 +24,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("epoch_kernel.cu", "head_step.cu", "coo_tail.cu")
+SOURCES = ("epoch_kernel.cu", "head_step.cu", "coo_tail.cu", "probes.cu")
 HEADERS = ("common.h",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,9 @@ _SIGNATURES = {
     ),
     "sgd_coo_tail_forward": ([_P, _P, _P, _P, _I, _I, _I, _LL, _P, _P], ctypes.c_int),
     "sgd_coo_tail_outer": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P], ctypes.c_int),
+    "sgd_epoch_probe": ([_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P], ctypes.c_int),
+    "sgd_block_colsum": ([_P, _LL, _I, _I, _I, _P, _P, _P], ctypes.c_int),
+    "sgd_block_colsum_pipelined": ([_P, _LL, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
     "sgd_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -7,6 +7,8 @@ CPU because no card was found.  A CPU run asks for it by name
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,25 @@ def resolve_device(device) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the device's queued work (a no-op off the card), so that a
+    host clock read after it covers the work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def describe(dev: torch.device) -> str:
+    """The device a measurement ran on: for the card, its name and power
+    limit as `nvidia-smi --query-gpu=name,power.limit` prints them (a card
+    may be set below its maximum power and then runs slower); else the
+    device's name."""
+    if dev.type != "cuda":
+        return str(dev)
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return f"{torch.cuda.get_device_name(dev)}, power limit not read"

@@ -11,7 +11,8 @@ Bounds: K2 as tests/test_pallas.py (f32: g atol 1e-5, corr atol 2e-3;
 bf16: g 3e-2, corr 2e-2 x max|corr|); K1 one epoch at 1e-5 x scale; K3 / K4
 at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
 across two runs; fits through a kernel vs the plain step path on the card
-at 1e-4 x scale.
+at 1e-4 x scale; the probes P1 at 1e-5 x max and bit-identical across two
+runs, P2 / P3 within 1e-6 x sum |x| per column, P2 bit-identical.
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver import head_kernel as hk
 from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.solver.saga import SagaState
+from sgdnet_tpu_torch.tools import probe_kernels as pk
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +203,66 @@ def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     scale = max(1.0, np.abs(f_p.beta).max())
     assert np.abs(f_k.beta - f_p.beta).max() / scale < (1e-2 if head == "bfloat16" else 1e-3)
     assert np.isfinite(f_k.dev_ratio).all() and f_k.dev_ratio[-1] > f_k.dev_ratio[0]
+
+
+# ---------------------------------------------------------------------------
+# the probes P1-P3 (sgdnet_tpu_torch/tools/probe_kernels.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,p,batch", [(512, 32, 32), (4224, 128, 32)])
+def test_epoch_probe_matches_twin(dev, n, p, batch):
+    """P1 two epochs against its twin at 1e-5 of each array's max (f32 sums
+    in another order), and identical bits over two launches."""
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    x, y, wt = t(rng.normal(size=(n, p))), t(rng.normal(size=(n, 8))), t(rng.uniform(0.5, 1.5, (n, 8)))
+    init = [t(0.1 * rng.normal(size=s)) for s in [(8, p), (n, 8), (8, p)]]
+    T = n // batch
+    starts = [torch.tensor(rng.permutation(T) * batch, dtype=torch.int32, device=dev) for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        state = [a.clone() for a in init]
+        before = pk.epoch_probe.launches
+        for s in starts:
+            pk.epoch_probe(s, x, y, wt, *state, batch)
+        assert pk.epoch_probe.launches == before + 2
+        runs.append(state)
+    ref = [a.clone() for a in init]
+    for s in starts:
+        pk.epoch_probe_reference(s, x, y, wt, *ref, batch)
+    torch.cuda.synchronize()
+    for a, b, r in zip(*runs, ref):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()), rtol=0)
+
+
+def _colsum_ok(out, ref, head, start, batch):
+    absum = head[start : start + batch].float().abs().sum(0)
+    assert bool(((out - ref).abs() <= 1e-6 * absum).all())
+
+
+@pytest.mark.parametrize("n_pad,D,batch", [(2048, 768, 256), (106496, 16384, 8192)])
+def test_block_colsum_kernels_match_twin(dev, n_pad, D, batch):
+    """P2 at each tile height (identical bits over two launches) and P3 at
+    each ring config, against the twin within 1e-6 x sum |x| per column."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    head = torch.randn((n_pad, D), generator=gen, dtype=torch.bfloat16, device=dev)
+    start = n_pad - batch  # the last block: the largest offsets
+    for bt in (32, 256, 1024):
+        if batch % bt:
+            continue
+        before = pk.block_colsum.launches
+        out = pk.block_colsum(head, start, batch, bt)
+        assert pk.block_colsum.launches == before + 1
+        assert torch.equal(out, pk.block_colsum(head, start, batch, bt))
+        _colsum_ok(out, pk.block_colsum_reference(head, start, batch, bt), head, start, batch)
+    for n_buf, chunk_rows in ((2, 512), (4, 256), (8, 128), (2, 64), (8, 32)):
+        if batch % chunk_rows:
+            continue
+        before = pk.block_colsum_pipelined.launches
+        out = pk.block_colsum_pipelined(head, start, batch, n_buf, chunk_rows)
+        assert pk.block_colsum_pipelined.launches == before + 1
+        _colsum_ok(out, pk.block_colsum_reference(head, start, batch, chunk_rows), head, start, batch)
+    torch.cuda.synchronize()

@@ -174,9 +174,12 @@ def test_import_leaves_jax_out():
         "import sys, sgdnet_tpu_torch, sgdnet_tpu_torch.utils.convert, sgdnet_tpu_torch.utils.build\n"
         "import sgdnet_tpu_torch.solver.epoch_kernel, sgdnet_tpu_torch.solver.head_kernel\n"
         "import sgdnet_tpu_torch.solver.tail_kernel, sgdnet_tpu_torch.core.sparse, scipy.sparse as sp\n"
+        "import sgdnet_tpu_torch.tools.bench_epoch_kernel, sgdnet_tpu_torch.tools.bench_head_dma\n"
+        "import sgdnet_tpu_torch.tools.bench_dma_streams, sgdnet_tpu_torch.core.layout\n"
         "x, y = sgdnet_tpu_torch.load_wine()\n"
         "sgdnet_tpu_torch.fit(x, y, family='multinomial', nlambda=2, device='cpu')\n"
-        "sgdnet_tpu_torch.fit(sp.csr_matrix(x), y, family='multinomial', nlambda=2, hybrid=True, device='cpu')\n"
+        "sgdnet_tpu_torch.fit(sp.csr_matrix(x), y, family='multinomial', nlambda=2, hybrid=True, device='cpu',\n"
+        "                     hybrid_max_head='auto')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sgdnet_tpu.'))"
         " or m == 'sgdnet_tpu')\n"
         "assert not bad, bad\n"
@@ -191,8 +194,8 @@ def test_import_leaves_jax_out():
     dict(screen=True),
     dict(screen="auto"),
     dict(screen="auto", hybrid=True),
-    dict(hybrid_max_head="auto", hybrid_head_dtype="int8"),
-    dict(hybrid_max_head="auto"),
+    dict(screen=True, hybrid_max_head="auto", hybrid_head_dtype="int8"),
+    dict(mesh=object(), hybrid_max_head="auto"),
     dict(lambda_chunk=4, sparse_mode="gather"),
     dict(lambda_chunk=4),
 ])
@@ -203,15 +206,18 @@ def test_out_of_slice_keywords_raise(kw):
 
 
 def test_scipy_sparse_input_raises():
-    """scipy input is ported (tests/test_torch_sparse.py); what it still
-    raises for is the layout planner's head width."""
+    """scipy input is ported (tests/test_torch_sparse.py), the layout
+    planner included; what it raises for is a missing value."""
     import scipy.sparse as sp
 
     x, y = tst.load_heart()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tst.fit(sp.csr_matrix(x), y, family="binomial", hybrid_max_head="auto", device="cpu")
-    f = tst.fit(sp.csr_matrix(x), y, family="binomial", nlambda=3, device="cpu")
+    xn = sp.csr_matrix(x)
+    xn.data[0] = np.nan
+    with pytest.raises(ValueError, match="NA"):
+        tst.fit(xn, y, family="binomial", hybrid_max_head="auto", device="cpu")
+    f = tst.fit(sp.csr_matrix(x), y, family="binomial", nlambda=3, hybrid_max_head="auto", device="cpu")
     assert f.stats["layout"]["kind"] == "padded_csr" and np.isfinite(f.beta).all()
+    assert f.stats["layout_plan"]["max_head"] == x.shape[1]  # 13 columns: the plan caps at p
 
 
 def test_fit_without_a_card_raises(monkeypatch):

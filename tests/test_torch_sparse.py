@@ -488,6 +488,14 @@ def test_padded_csr_never_takes_the_head_kernel():
 
 
 def test_hybrid_max_head_auto_is_not_ported():
+    """hybrid_max_head="auto" runs the port's planner (core/layout.py): the
+    head is the plan's width, the split is the plan's alone (coverage 1.0),
+    and the plan is recorded (tests/test_torch_layout.py holds it against
+    the JAX package's)."""
+    from sgdnet_tpu_torch.core.layout import plan_layout
+
     x, y, _ = _zipf_csr()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tst.fit(x, y, family="binomial", hybrid_max_head="auto", **CPU)
+    f = tst.fit(x, y, family="binomial", hybrid_max_head="auto", nlambda=2, maxit=20, batch_size=64, **CPU)
+    plan = plan_layout(x, batch_size=64, head_itemsize=4, g_sum_refresh_every=1, hbm_budget=2e9)
+    assert f.stats["layout_plan"]["max_head"] == plan.max_head == f.stats["layout"]["head_width"]
+    assert np.isfinite(f.beta).all()
