@@ -8,11 +8,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   2. build the hand-written kernels' four sources in csrc/ and report the
      seconds;
   3. K2 (fused head step) against its plain torch twin at the dense
-     multinomial shape n_pad=65536, D=784, B=4096, f32 and bf16;
+     multinomial shape n_pad=65536, D=784, B=4096, f32 and bf16, on rows
+     that are not a multiple of 16 bytes (D 785, 786) with a B only 8
+     divides, and at k = 128, with identical bits over two runs; its time,
+     device time and GB/s of head beside the two torch.matmul products;
   4. K1 (whole-epoch kernel) against its twin, one epoch on the bundled
      datasets and a seeded poisson set;
   5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, held against
-     the plain step path on the card, predict/score, and a golden path;
+     the plain step path on the card over the first quarter of the path,
+     predict/score, and a golden path;
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
      wall times and samples/s;
@@ -21,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on every block of slice C's tail: relative error, identical bits over
      two runs, kernel / twin / torch.sparse.mm times and the bound;
   8. K2 against its twin on a bf16 head at slice C's width (106496 x 16384,
-     B 8192, k 1, the last block);
+     B 8192, k 1, the last block), identical bits over two runs, its time,
+     device time and GB/s of head beside the two bf16 torch.mm products;
   9. slice C, the north-star sparse workload (a copy of bench.py's
      make_sparse_binomial: n 100000, p 47000, 76 nonzeros a row, Zipf
      columns; binomial, alpha 1, 10 lambdas) through fit() on a bf16
@@ -65,6 +70,13 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the device kernels one K2 call launches, by their names in a profile
+K2_KERNELS = ("head_step_resident", "head_step_streamed", "sum_partials")
+#: the times this script measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+#: before K2 and K4 were redesigned (K2: a 32-row tile per CTA, read twice;
+#: K4: one thread per column): ms a call and ms on the device
+EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
+           "k4_probe_shape": (0.0942, 0.0307)}
 #: H100 SXM peaks (NVIDIA's data sheet): device memory rate, FP32 outside
 #: the tensor cores, dense bf16 tensor cores
 HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -146,10 +158,14 @@ def phase_k2(rng, dev):
     from sgdnet_tpu_torch.solver import head_kernel as hk
 
     n_pad, B, start = 65536, 4096, 8192
-    cases = [("gaussian", 784, 1), ("binomial", 784, 1), ("multinomial", 784, 10),
-             ("mgaussian", 784, 10), ("binomial", 4096, 1)]
+    # (family, D, k, B): the dense shapes; a row that is not a multiple of 16
+    # bytes (f32 D 785; bf16 D 785 is only 2-byte aligned, D 786 4-byte) with
+    # a B that only 8 divides; k = 128 on a small head
+    cases = [("gaussian", 784, 1, B), ("binomial", 784, 1, B), ("multinomial", 784, 10, B),
+             ("mgaussian", 784, 10, B), ("binomial", 4096, 1, B), ("multinomial", 785, 10, 1032),
+             ("binomial", 786, 1, 1032), ("multinomial", 256, 128, 1032)]
     worst_f32 = 0.0
-    for family, D, k in cases:
+    for family, D, k, B in cases:
         head32 = torch.as_tensor(rng.standard_normal((n_pad, D), dtype=np.float32), device=dev)
         # w scaled so lp is O(1), as on a fitted path
         w = torch.as_tensor(rng.standard_normal((k, D), dtype=np.float32) / np.sqrt(D), device=dev)
@@ -168,7 +184,9 @@ def phase_k2(rng, dev):
             args = (head, start, w, lpe, yb, gm, wb, family)
             g, corr = hk.fused_head_step_at(*args)
             g_ref, corr_ref = hk.fused_head_step_reference(*args)
+            same = all(torch.equal(u, v) for u, v in zip((g, corr), hk.fused_head_step_at(*args)))
             torch.cuda.synchronize()
+            check(same, f"K2 gave different bits in two runs: {family} D={D} k={k} {dtype}")
             eg = float((g - g_ref).abs().max())
             ec = float((corr - corr_ref).abs().max())
             cmax = float(corr_ref.abs().max())
@@ -179,10 +197,12 @@ def phase_k2(rng, dev):
             else:
                 ok = eg <= 3e-2 and ec <= 2e-2 * max(cmax, 1.0)
                 bound = "g 3e-2, corr 2e-2*max|corr|"
-            print(f"  K2 {family:11s} D={D} k={k:2d} {str(dtype)[6:]:8s}: max|dg|={eg:.3e} "
-                  f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound {bound}) {'ok' if ok else 'FAIL'}")
+            print(f"  K2 {family:11s} D={D} k={k:3d} B={B} {str(dtype)[6:]:8s}: max|dg|={eg:.3e} "
+                  f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound {bound}), bits identical over two runs "
+                  f"{'ok' if ok else 'FAIL'}")
             check(ok, f"K2 disagrees with its twin: {family} D={D} k={k} {dtype}")
     # time at the main path's shape: f32 multinomial k=10
+    B = 4096
     head = torch.as_tensor(rng.standard_normal((n_pad, 784), dtype=np.float32), device=dev)
     k = 10
     w = torch.as_tensor(rng.standard_normal((k, 784), dtype=np.float32) / 28.0, device=dev)
@@ -198,12 +218,16 @@ def phase_k2(rng, dev):
     two_ms = cuda_ms(lambda: (xb @ w.T, gct @ xb), 50)
     # the block once, w, lp_extra / y / g_mem / wb in; g and corr out
     b = roofline(4 * (B * 784 + 2 * k * 784 + 4 * B * k + B), 4 * B * 784 * k, F32_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, ("head_step_tile", "sum_partials"))
-    print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the "
-          f"device), plain torch {plain_ms:.4f} ms, the two torch.matmul products {two_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, K2_KERNELS)
+    check(dev_ms is not None, "the profile shows no K2 kernel: no device time measured")
+    gbs = 4 * B * 784 / dev_ms / 1e6
+    print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32 ({hk.device_plan(head, B, k)}): kernel {ms:.4f} ms a call "
+          f"({dev_ms:.4f} ms on the device, {gbs:.1f} GB/s of head; earlier {EARLIER['k2_f32'][0]} / "
+          f"{EARLIER['k2_f32'][1]}), plain torch {plain_ms:.4f} ms, the two torch.matmul products {two_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "two_products_ms": two_ms, "device_ms": dev_ms}
+            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs,
+            "earlier_ms": EARLIER["k2_f32"][0], "earlier_device_ms": EARLIER["k2_f32"][1]}
 
 
 # ---------------------------------------------------------------------------
@@ -345,13 +369,16 @@ def check_slice_a(f, wall, launches, dev, card):
     dr = f.dev_ratio
     check(np.isfinite(dr).all() and np.isfinite(f.beta).all(), "slice A: non-finite path")
     check(np.all(np.diff(dr) >= -1e-6), f"slice A: dev_ratio decreases along the path: {np.diff(dr).min()}")
+    # the plain comparison fit takes a minute or more for the 100 lambdas on a
+    # host-bound path: it is made for the first quarter of the path
+    head_n = f.n_lambda // 4
     t0 = time.perf_counter()
     f_plain = st.fit(x, y, family="gaussian", alpha=0.8, device=dev, use_epoch_kernel=False,
-                     sampling="block")
+                     sampling="block", lambda_path=f.lambda_[:head_n])
     wall_plain = time.perf_counter() - t0
     check(f_plain.stats["epoch_kernel"] is False, "plain slice A ran the kernel")
-    rel = _rel_diff(f.beta, f_plain.beta)
-    print(f"  slice A plain step path: {wall_plain:.3f} s wall, {f_plain.npasses} epochs; "
+    rel = _rel_diff(f.beta[:head_n], f_plain.beta)
+    print(f"  slice A plain step path, the first {head_n} lambdas: {wall_plain:.3f} s wall, {f_plain.npasses} epochs; "
           f"K1 vs plain max|dbeta|/scale = {rel:.3e} (bound 1e-3) [{card}]")
     check(rel <= 1e-3, "slice A: K1 fit disagrees with the plain step path")
     pred = f.predict(x, type="response")
@@ -367,7 +394,8 @@ def check_slice_a(f, wall, launches, dev, card):
     rel_g = _rel_diff(fg.beta[:, 0, :], g["a1.0_s1_beta"])
     print(f"  slice A golden path (alpha=1, f32 through K1): max|dbeta|/scale = {rel_g:.3e} (bound 2e-3)")
     check(rel_g <= 2e-3, "slice A: K1 fit misses the golden path")
-    return {"wall_s": wall, "epochs": f.npasses, "plain_wall_s": wall_plain, "plain_epochs": f_plain.npasses}
+    return {"wall_s": wall, "epochs": f.npasses, "plain_lambdas": head_n, "plain_wall_s": wall_plain,
+            "plain_epochs": f_plain.npasses}
 
 
 def _multinomial_data(seed: int, n=65536, p=784, k=10):
@@ -498,7 +526,7 @@ def _tail_times(tk, bt, blk, w, gc, dev):
 
     a_t, at_t = csr(a), csr(at)
     wt = w.T.contiguous()
-    u = int(bt.n_distinct[blk])
+    u = int((bt.col_seg[blk, 1:] > bt.col_seg[blk, :-1]).sum())  # distinct columns
     k3 = {"ms": cuda_ms(lambda: tk.coo_tail_forward(bt, blk, w), 200),
           "device_ms": device_ms(lambda: tk.coo_tail_forward(bt, blk, w), 50, ("coo_forward",)),
           "plain_ms": cuda_ms(lambda: tk.coo_tail_forward_reference(bt, blk, w), 50),
@@ -509,6 +537,7 @@ def _tail_times(tk, bt, blk, w, gc, dev):
           "plain_ms": cuda_ms(lambda: tk.coo_tail_outer_reference(bt, blk, gc), 50),
           "library_ms": cuda_ms(lambda: torch.sparse.mm(at_t, gc), 200),
           **roofline(12 * c + 4 * bt.batch + 4 * bt.n_cols, 2 * c, F32_FLOPS)}
+    check(k4["device_ms"] is not None, "the profile shows no coo_outer kernel: no K4 device time measured")
     return k3, k4, c, u
 
 
@@ -555,9 +584,15 @@ def phase_tail(rng, dev, csr, seed):
               f"({_fmt(r['device_ms'])} on the device), twin "
               f"{r['plain_ms']:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
+    print(f"    K4 earlier: {EARLIER['k4'][0]} ms a call / {EARLIER['k4'][1]} ms on the device on slice C's block, "
+          f"{EARLIER['k4_probe_shape'][0]} / {EARLIER['k4_probe_shape'][1]} at the probes' shape")
     extra = {"max_abs_err": worst_err, "max_rel_err": worst_rel, "block_entries": c}
     return ({**k3, **extra, "probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"]},
-            {**k4, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"]})
+            {**k4, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"],
+             "probe_shape_library_ms": k4_4["library_ms"],
+             "earlier_ms": EARLIER["k4"][0], "earlier_device_ms": EARLIER["k4"][1],
+             "earlier_probe_shape_ms": EARLIER["k4_probe_shape"][0],
+             "earlier_probe_shape_device_ms": EARLIER["k4_probe_shape"][1]})
 
 
 # ---------------------------------------------------------------------------
@@ -578,13 +613,16 @@ def phase_k2_wide(rng, dev, seed):
             t(0.1 * rng.standard_normal((B, k))), t(rng.random(B) < 0.9), "binomial")
     g, corr = hk.fused_head_step_at(*args)
     g_ref, corr_ref = hk.fused_head_step_reference(*args)
+    same = all(torch.equal(u, v) for u, v in zip((g, corr), hk.fused_head_step_at(*args)))
     torch.cuda.synchronize()
     eg, ec = float((g - g_ref).abs().max()), float((corr - corr_ref).abs().max())
     cmax = float(corr_ref.abs().max())
     ok = eg <= 3e-2 and ec <= 2e-2 * max(cmax, 1.0)
     print(f"  K2 binomial bf16 n_pad={n_pad} D={D} B={B} k=1 at start {start}: max|dg|={eg:.3e} "
-          f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound g 3e-2, corr 2e-2*max|corr|) {'ok' if ok else 'FAIL'}")
+          f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound g 3e-2, corr 2e-2*max|corr|), bits identical over "
+          f"two runs: {same} {'ok' if ok else 'FAIL'}")
     check(ok, "K2 disagrees with its twin at slice C's width")
+    check(same, "K2 gave different bits in two runs at slice C's width")
     ms = cuda_ms(lambda: hk.fused_head_step_at(*args), 20)
     plain_ms = cuda_ms(lambda: hk.fused_head_step_reference(*args), 20)
     xb = head[start:start + B]
@@ -594,11 +632,16 @@ def phase_k2_wide(rng, dev, seed):
                               torch.mm(gct, xb, out_dtype=torch.float32)), 20)
     # the bf16 block once, w and the (B, k) operands in, g and corr out
     b = roofline(2 * B * D + 4 * (2 * k * D + 4 * B * k + B), 4 * B * D * k, BF16_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, ("head_step_tile", "sum_partials"))
-    print(f"  K2 time there: kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the device), plain torch {plain_ms:.4f} "
-          f"ms, the two bf16 torch.mm products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, K2_KERNELS)
+    check(dev_ms is not None, "the profile shows no K2 kernel: no device time measured")
+    gbs = 2 * B * D / dev_ms / 1e6
+    print(f"  K2 time there ({hk.device_plan(head, B, k)}): kernel {ms:.4f} ms a call ({dev_ms:.4f} ms on the device, "
+          f"{gbs:.1f} GB/s of head, beside the full-head torch.sum rate of phase 12; earlier "
+          f"{EARLIER['k2_bf16'][0]} / {EARLIER['k2_bf16'][1]}), plain torch {plain_ms:.4f} ms, the two bf16 torch.mm "
+          f"products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": max(eg, ec), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "two_products_ms": two_ms, "device_ms": dev_ms}
+            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs,
+            "earlier_ms": EARLIER["k2_bf16"][0], "earlier_device_ms": EARLIER["k2_bf16"][1]}
 
 
 # ---------------------------------------------------------------------------

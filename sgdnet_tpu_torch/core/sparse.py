@@ -214,6 +214,11 @@ class PaddedCSR:
 # ---------------------------------------------------------------------------
 
 
+#: a column of a block with more entries than this is summed by a whole
+#: warp of K4 (lanes stride over its segment) instead of one thread
+HEAVY_LEN = 16
+
+
 @dataclass
 class BlockCOO:
     """The tail's true nonzeros packed per row block of `batch` rows (block
@@ -226,14 +231,23 @@ class BlockCOO:
     column 0, value 0) follow them.  The views below are the port's own,
     built once on the host, for the tail kernels:
 
-        counts     (n_blocks,)          true entries per block
-        row_ptr    (n_blocks, batch+1)  row segments of the true prefix (K3)
-        col_order  (n_blocks, E)        entry positions stably sorted by column (K4)
-        col_ids    (n_blocks, U)        each block's distinct columns, ascending
-        col_ptr    (n_blocks, U+1)      their segments in col_order
-        n_distinct (n_blocks,)          distinct columns per block
+        counts      (n_blocks,)          true entries per block
+        row_ptr     (n_blocks, batch+1)  row segments of the true prefix (K3)
+        rows_by_col (n_blocks, E)        the true entries' rows, stably sorted by column (K4)
+        vals_by_col (n_blocks, E)        their values, in the same order
+        col_seg     (n_blocks, p+1)      column j's segment of that order is
+                                         [col_seg[j], col_seg[j+1]): a dense map
+                                         over all p columns, empty where the
+                                         block has no entry
+        heavy_cols  (n_blocks, H)        the columns with more than HEAVY_LEN
+                                         entries, ascending, padded with -1
 
-    U = `max_distinct`, the most distinct columns of any block.
+    H = `max_heavy`, the most heavy columns of any block.  The tensors are
+    contiguous and never reallocated or resized after construction, so the
+    device address of each block's row of each view is computed once
+    (`addr`, Python ints) and the kernels' wrappers index no tensor per
+    call; `dataclasses.replace` and every constructor run `__post_init__`,
+    which rebuilds the table.
     """
 
     rows: torch.Tensor
@@ -243,11 +257,23 @@ class BlockCOO:
     n_cols: int
     counts: torch.Tensor
     row_ptr: torch.Tensor
-    col_order: torch.Tensor
-    col_ids: torch.Tensor
-    col_ptr: torch.Tensor
-    n_distinct: torch.Tensor
-    max_distinct: int
+    rows_by_col: torch.Tensor
+    vals_by_col: torch.Tensor
+    col_seg: torch.Tensor
+    heavy_cols: torch.Tensor
+    max_heavy: int
+
+    #: the views whose per-block addresses `addr` holds, in its order
+    ADDRESSED = ("row_ptr", "cols", "vals", "col_seg", "rows_by_col", "vals_by_col", "heavy_cols")
+
+    def __post_init__(self):
+        views = [getattr(self, f) for f in self.ADDRESSED]
+        if not all(v.is_contiguous() and v.shape[0] == self.rows.shape[0] for v in views):
+            raise ValueError("BlockCOO views must be contiguous, one row a block")
+        self.dtype, self.device = self.vals.dtype, self.vals.device
+        #: addr[blk] = the device addresses of block blk's rows of ADDRESSED
+        self.addr = [tuple(v.data_ptr() + blk * v.stride(0) * v.element_size() for v in views)
+                     for blk in range(self.rows.shape[0])]
 
     @property
     def n_blocks(self) -> int:
@@ -293,9 +319,10 @@ class BlockCOO:
             counts = np.where(live.any(axis=1), E - np.argmax(live[:, ::-1], axis=1), 0)
         counts = np.asarray(counts, np.int32)
         row_ptr = np.zeros((n_blocks, batch + 1), np.int32)
-        col_order = np.tile(np.arange(E, dtype=np.int32), (n_blocks, 1))
-        n_distinct = np.zeros(n_blocks, np.int32)
-        seg = []
+        rows_by_col = np.zeros((n_blocks, E), np.int32)
+        vals_by_col = np.zeros((n_blocks, E), vals.dtype)
+        col_seg = np.zeros((n_blocks, n_cols + 1), np.int32)
+        heavy = []
         for b in range(n_blocks):
             c = int(counts[b])
             r = rows[b, :c]
@@ -303,20 +330,18 @@ class BlockCOO:
                 raise ValueError("BlockCOO rows must ascend over each block's true entries")
             row_ptr[b] = np.searchsorted(r, np.arange(batch + 1), side="left")
             order = np.argsort(cols[b, :c], kind="stable")
-            col_order[b, :c] = order
-            uniq, start = np.unique(cols[b, :c][order], return_index=True)
-            n_distinct[b] = len(uniq)
-            seg.append((uniq, start, c))
-        U = max(int(n_distinct.max()) if n_blocks else 0, 1)
-        col_ids = np.zeros((n_blocks, U), np.int32)
-        col_ptr = np.zeros((n_blocks, U + 1), np.int32)
-        for b, (uniq, start, c) in enumerate(seg):
-            col_ids[b, : len(uniq)] = uniq
-            col_ptr[b, : len(uniq)] = start
-            col_ptr[b, len(uniq):] = c
+            rows_by_col[b, :c] = r[order]
+            vals_by_col[b, :c] = vals[b, :c][order]
+            per_col = np.bincount(cols[b, :c], minlength=n_cols)
+            col_seg[b, 1:] = np.cumsum(per_col)
+            heavy.append(np.flatnonzero(per_col > HEAVY_LEN).astype(np.int32))
+        max_heavy = max((len(h) for h in heavy), default=0)
+        heavy_cols = np.full((n_blocks, max(max_heavy, 1)), -1, np.int32)
+        for b, h in enumerate(heavy):
+            heavy_cols[b, : len(h)] = h
         t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
-        return cls(t(rows), t(cols), t(vals), batch, n_cols, t(counts), t(row_ptr), t(col_order), t(col_ids),
-                   t(col_ptr), t(n_distinct), int(n_distinct.max()) if n_blocks else 0)
+        return cls(t(rows), t(cols), t(vals), batch, n_cols, t(counts), t(row_ptr), t(rows_by_col),
+                   t(vals_by_col), t(col_seg), t(heavy_cols), max_heavy)
 
 
 # ---------------------------------------------------------------------------

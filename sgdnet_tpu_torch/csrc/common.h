@@ -53,18 +53,37 @@ __device__ __forceinline__ float elementwise_gradient(int family, float lp, floa
 
 namespace {
 
-// out[i] = sum over t < n_parts of part[t * n + i], in order of t: the
-// second stage of a split reduction whose first stage wrote one partial
-// row per tile.  The TPU grid accumulates in one scratch buffer across
+constexpr int SP_X = 32, SP_Y = 8;  // columns and part groups of a sum_partials CTA
+
+// out[i] = sum over t < n_parts of part[t * n + i]: the second stage of a
+// split reduction whose first stage wrote one partial row per tile or
+// cluster.  The TPU grid accumulates in one scratch buffer across
 // sequential steps; Hopper CTAs run in no order, and this fixed-order sum
-// is the deterministic equivalent (no atomics).
-__global__ void sum_partials(const float* __restrict__ part, int n_parts, long long n,
-                             float* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// is the deterministic equivalent (no atomics): thread (x, y) adds parts
+// y, y + 8, ... of column x in order, and the 8 group sums are added in
+// group order.  Eight loads a column are in flight at once, where one
+// thread walking all parts would wait for each in turn.
+__global__ void __launch_bounds__(SP_X* SP_Y) sum_partials(const float* __restrict__ part, int n_parts,
+                                                           long long n, float* __restrict__ out) {
+  __shared__ float red[SP_Y][SP_X];
+  const long long i = blockIdx.x * (long long)SP_X + threadIdx.x;
   float s = 0.f;
-  for (int t = 0; t < n_parts; ++t) s += part[t * n + i];
-  out[i] = s;
+  if (i < n)
+    for (int t = threadIdx.y; t < n_parts; t += SP_Y) s += part[t * n + i];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float acc = red[0][threadIdx.x];
+#pragma unroll
+    for (int y = 1; y < SP_Y; ++y) acc += red[y][threadIdx.x];
+    out[i] = acc;
+  }
+}
+
+inline cudaError_t launch_sum_partials(const float* part, int n_parts, long long n, float* out,
+                                       cudaStream_t s) {
+  sum_partials<<<(unsigned)((n + SP_X - 1) / SP_X), dim3(SP_X, SP_Y), 0, s>>>(part, n_parts, n, out);
+  return cudaGetLastError();
 }
 
 }  // namespace

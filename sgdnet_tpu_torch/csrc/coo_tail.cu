@@ -15,19 +15,27 @@
 //
 // What bounds them: at the north-star shapes a block holds ~13k-41k true
 // entries of 12 bytes (row, column, value) plus one 4-byte gather each,
-// under a megabyte, i.e. well under a microsecond at 3.35 TB/s; they are
-// bound by latency and launch cost.  Design: both are segment sums over
-// views built once on the host, so neither needs atomics and two runs give
-// identical bits:
+// under a megabyte, i.e. well under a microsecond at 3.35 TB/s; on the card
+// they are bound by the longest chain of dependent loads one thread walks,
+// and per call by the host (a launch costs more than the kernel runs).
+// Design: both are segment sums over views built once on the host, so
+// neither needs atomics and two runs give identical bits:
 //   * K3: rows ascend over a block's true entries, so `row_ptr` gives each
 //     batch row a contiguous segment; one thread owns one (row, class) and
 //     sums its segment in entry order.  The pad entries after the true
 //     prefix are never read.
-//   * K4: `col_order` lists the true entries stably sorted by column and
-//     `col_ptr` / `col_ids` give each distinct column its segment; one
-//     thread owns one (column, class), sums its segment in entry order and
-//     writes the column.  Columns the block does not touch stay at the
-//     zeros the wrapper allocated.
+//   * K4: the block's rows and values are stored a second time in column
+//     order (`rows_by_col`, `vals_by_col`: the walk reads them contiguously
+//     and only gc[row] is a gather), and `col_seg` maps every one of the p
+//     columns to its segment, empty for most.  One thread owns one (column,
+//     class) with at most HEAVY_LEN entries, sums them in order and writes
+//     the column, zero where the block has no entry: the kernel writes all
+//     of corr, so the caller allocates it uninitialised.  Columns are Zipf:
+//     a column with more than HEAVY_LEN entries (listed in `heavy_cols`)
+//     would set the whole launch's time if one thread walked it, so a warp
+//     owns it instead: lane l sums entries l, l + 32, ... in order and the
+//     32 lane sums meet in a fixed butterfly (`warp_sum_t`).  The heavy warps
+//     are extra CTAs of the same launch.
 
 #include "common.h"
 
@@ -50,24 +58,47 @@ __global__ void __launch_bounds__(TT) coo_forward(const int* __restrict__ row_pt
   out[t] = acc;
 }
 
+constexpr int HEAVY_LEN = 16;  // core/sparse.py HEAVY_LEN: the host lists the columns above it
+
 template <typename T>
-__global__ void __launch_bounds__(TT) coo_outer(const int* __restrict__ col_ptr,
-                                                const int* __restrict__ col_ids,
-                                                const int* __restrict__ col_order,
-                                                const int* __restrict__ n_distinct,
-                                                const int* __restrict__ rows,
-                                                const T* __restrict__ vals,
+__device__ __forceinline__ T warp_sum_t(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(sgd::FULL_MASK, v, o);
+  return v;
+}
+
+// CTAs [0, light_ctas): one thread per (column, class) over all p columns.
+// CTAs after them: one warp per (heavy column, class).
+template <typename T>
+__global__ void __launch_bounds__(TT) coo_outer(const int* __restrict__ col_seg,
+                                                const int* __restrict__ rows_by_col,
+                                                const T* __restrict__ vals_by_col,
+                                                const int* __restrict__ heavy_cols, int n_heavy,
                                                 const T* __restrict__ gc, int k, long long p,
-                                                T* __restrict__ corr) {
-  const long long t = blockIdx.x * (long long)TT + threadIdx.x;
-  const int u = (int)(t / k), c = (int)(t % k);
-  if (u >= *n_distinct) return;
-  T acc = 0;
-  for (int s = col_ptr[u]; s < col_ptr[u + 1]; ++s) {
-    const int e = col_order[s];
-    acc += vals[e] * gc[(long long)rows[e] * k + c];
+                                                int light_ctas, T* __restrict__ corr) {
+  if ((int)blockIdx.x < light_ctas) {
+    const long long t = blockIdx.x * (long long)TT + threadIdx.x;
+    if (t >= p * k) return;
+    const long long j = t / k;
+    const int c = (int)(t % k);
+    const int s0 = col_seg[j], s1 = col_seg[j + 1];
+    if (s1 - s0 > HEAVY_LEN) return;  // a warp of the heavy CTAs writes it
+    T acc = 0;
+    for (int s = s0; s < s1; ++s) acc += vals_by_col[s] * gc[(long long)rows_by_col[s] * k + c];
+    corr[c * p + j] = acc;
+    return;
   }
-  corr[c * p + col_ids[u]] = acc;
+  const int lane = threadIdx.x & 31;
+  const long long wi = ((long long)blockIdx.x - light_ctas) * (TT / 32) + (threadIdx.x >> 5);
+  if (wi >= (long long)n_heavy * k) return;
+  const int c = (int)(wi % k);
+  const int j = heavy_cols[wi / k];
+  if (j < 0) return;  // this block has fewer heavy columns than the widest
+  const int s1 = col_seg[j + 1];
+  T acc = 0;
+  for (int s = col_seg[j] + lane; s < s1; s += 32) acc += vals_by_col[s] * gc[(long long)rows_by_col[s] * k + c];
+  acc = warp_sum_t(acc);
+  if (lane == 0) corr[c * p + j] = acc;
 }
 
 unsigned grid_of(long long threads) { return (unsigned)((threads + TT - 1) / TT); }
@@ -94,24 +125,23 @@ int sgd_coo_tail_forward(const int* row_ptr, const int* cols, const void* vals, 
   return cudaGetLastError();
 }
 
-// K4 on one block: col_ptr (U + 1), col_ids (U), col_order / rows / vals (E)
-// and n_distinct (1) are that block's rows of the views, U the views' padded
-// width, gc (B, k), corr (k, p) zeroed by the caller.
-int sgd_coo_tail_outer(const int* col_ptr, const int* col_ids, const int* col_order, const int* n_distinct,
-                       const int* rows, const void* vals, const void* gc, int dtype, int U, int k,
-                       long long p, void* corr, void* stream) {
+// K4 on one block: col_seg (p + 1), rows_by_col / vals_by_col (E) and
+// heavy_cols (n_heavy, -1 past the block's own) are that block's rows of the
+// views, gc (B, k); corr (k, p) is written whole.
+int sgd_coo_tail_outer(const int* col_seg, const int* rows_by_col, const void* vals_by_col,
+                       const int* heavy_cols, int n_heavy, const void* gc, int dtype, int k, long long p,
+                       void* corr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_of((long long)U * k);
+  const unsigned light = grid_of(p * k);
+  const unsigned grid = light + grid_of((long long)n_heavy * k * 32);
   if (dtype == 1)
-    coo_outer<double><<<grid, TT, 0, s>>>(col_ptr, col_ids, col_order, n_distinct, rows,
-                                          static_cast<const double*>(vals),
-                                          static_cast<const double*>(gc), k, p,
-                                          static_cast<double*>(corr));
+    coo_outer<double><<<grid, TT, 0, s>>>(col_seg, rows_by_col, static_cast<const double*>(vals_by_col),
+                                          heavy_cols, n_heavy, static_cast<const double*>(gc), k, p,
+                                          (int)light, static_cast<double*>(corr));
   else
-    coo_outer<float><<<grid, TT, 0, s>>>(col_ptr, col_ids, col_order, n_distinct, rows,
-                                         static_cast<const float*>(vals),
-                                         static_cast<const float*>(gc), k, p,
-                                         static_cast<float*>(corr));
+    coo_outer<float><<<grid, TT, 0, s>>>(col_seg, rows_by_col, static_cast<const float*>(vals_by_col),
+                                         heavy_cols, n_heavy, static_cast<const float*>(gc), k, p,
+                                         (int)light, static_cast<float*>(corr));
   return cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@
 // the sum across grid steps.  Hopper cannot stream from one block that way,
 // so the grid is (column strips) x (B / bt row tiles): each CTA sums its bt x
 // 512 tile (one thread per column pair, coalesced bf16x2 loads) into a
-// partial row, and a second launch adds the partials in tile order (K2's
+// partial row, and a second launch adds the partials in a fixed order (K2's
 // no-atomics scheme; deterministic).  `dimension_semantics` is a TPU
 // compiler hint and has no counterpart.
 //
@@ -239,8 +239,7 @@ int sgd_block_colsum(const void* head, long long start, int D, int B, int bt, fl
   colsum_tile<<<grid, CT, 0, s>>>(static_cast<const __nv_bfloat16*>(head), start, D, bt, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sgd::sum_partials<<<(unsigned)((D + 255) / 256), 256, 0, s>>>(part, B / bt, D, out);
-  return cudaGetLastError();
+  return sgd::launch_sum_partials(part, B / bt, D, out, s);
 }
 
 // P3: the same sums through a ring of n_buf (2, 4 or 8) cp.async stages of

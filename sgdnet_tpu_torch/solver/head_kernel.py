@@ -17,6 +17,10 @@ kernel does not take raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from sgdnet_tpu_torch.utils import build
@@ -27,15 +31,120 @@ _FAMILY_CODE = {"gaussian": 0, "binomial": 1, "multinomial": 3, "mgaussian": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: class count limit (the JAX kernel pads k to at most 128 lanes)
 MAX_K = 128
+#: threads of a CTA, and the shared memory one CTA can use on Hopper
+THREADS = 256
+SMEM_LIMIT = 232448
+#: SMs of an H100 SXM, and the shared memory of one (each CTA on it takes
+#: its own bytes and 1024 reserved): the persistent grid's default size
+N_SM = 132
+SMEM_PER_SM = 233472
 
 
-def pick_bt(B: int):
-    """Rows per CTA: 32 when the batch allows it (B = 4096 -> 128 CTAs,
-    about one per SM), else the largest of 16 / 8 dividing B."""
-    for bt in (32, 16, 8):
-        if B % bt == 0:
-            return bt
-    return None
+class HeadPlan(NamedTuple):
+    """What `plan` chose for one (B, D, k, dtype); the kernel's launch
+    parameters, as csrc/head_step.cu `sgd_head_step` takes them."""
+
+    resident: bool  # a row tile stays in shared memory between the two products
+    bt: int  # rows of a tile
+    C: int  # CTAs of a cluster = column strips of the head
+    W: int  # columns of a strip (a multiple of 16 bytes)
+    S: int  # ring stages
+    tpc: int  # consecutive tiles one cluster walks
+    n_parts: int  # clusters (resident) or tiles (streamed): partial corrs
+    single: bool  # corr accumulators live in registers across the tiles
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+    @property
+    def ctas(self) -> int:
+        return self.n_parts * self.C
+
+
+def _resident_smem(bt: int, W: int, S: int, k: int, es: int, single: bool) -> int:
+    return S * bt * W * es + k * W * es + (0 if single else 4 * k * W) + 4 * k * (2 * max(bt, 16) + 2 * bt)
+
+
+def ctas_per_sm(smem: int, k: int) -> int:
+    """CTAs of the resident kernel one SM holds: by shared memory, and at
+    most 3 (k = 1) or 2 (the wider accumulators' registers)."""
+    return max(1, min(3 if k == 1 else 2, SMEM_PER_SM // (smem + 1024)))
+
+
+def resident_plans(B: int, D: int, k: int, dtype, max_ctas: int | None = None):
+    """Every resident HeadPlan that fits shared memory: C ascending, rows
+    of a tile descending, stages descending from 3 (or a cluster's tiles).
+    The grid is `max_ctas` CTAs at most; by default what the card holds at
+    once, N_SM x `ctas_per_sm`."""
+    es = dtype.itemsize
+    ve = 16 // es
+    kc = 1 if k == 1 else 64 // ve  # classes of one chunk: 64 accumulators over 16 bytes of columns
+    for C in (1, 2, 4, 8):
+        W = -(-(-(-D // C)) // ve) * ve
+        if (C - 1) * W >= D:  # an empty strip
+            continue
+        single = k <= kc and W // ve <= THREADS
+        for bt in (32, 16, 8):
+            if B % bt:
+                continue
+            n_tiles = B // bt
+            for S in (3, 2, 1):
+                smem = _resident_smem(bt, W, S, k, es, single)
+                if smem > SMEM_LIMIT:
+                    continue
+                ctas = N_SM * ctas_per_sm(smem, k) if max_ctas is None else max_ctas
+                if ctas < C:
+                    continue
+                tpc = -(-n_tiles // (ctas // C))
+                if S <= tpc:
+                    yield HeadPlan(True, bt, C, W, S, tpc, -(-n_tiles // tpc), single, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, D: int, k: int, dtype=torch.float32, max_ctas: int | None = None):
+    """Launch parameters of K2 for a batch of B rows of a (n, D) head of
+    `dtype` and k classes, or None where the kernel takes no such shape
+    (B not a multiple of 8).
+
+    The resident design splits D into C strips (C in 1, 2, 4, 8: a thread
+    block cluster), W = ceil(D / C) columns rounded up to 16 bytes, and
+    keeps in each CTA's shared memory, with es the head's item size:
+
+        S * bt * W * es           the ring of S stages of bt-row tiles
+        k * W * es                w's strip, in the head's type
+        4 * k * W                 the corr accumulators, unless `single`: then
+                                  they are registers (k within one class
+                                  chunk: 1, or 64 accumulators over 16 bytes
+                                  of columns; and at most 256 16-byte
+                                  vectors a strip, one a thread)
+        4 * k * (2 max(bt, 16) + 2 bt)
+                                  the strip's parts of lp (two buffers; an
+                                  8-row tile has two column segments a row),
+                                  lp and gc
+
+    which may not exceed 232448 bytes (`SMEM_LIMIT`).  Of the (C, bt, S)
+    that fit, the one that puts most CTAs on an SM is taken (`ctas_per_sm`:
+    a tile's steps depend on each other, and on the card other CTAs of the
+    same SM hide that better than a deeper ring in one CTA:
+    tools/tune_head_step.py measures every candidate), then the smallest
+    C, the most rows a tile, the most stages (at most 3, and no more than
+    a cluster's tiles).  The grid is persistent: `max_ctas // C` clusters
+    at most (by default what the card holds at once), each walking `tpc`
+    consecutive tiles, so the partial corrs are one per cluster.
+
+    bf16 D 16384 k 1 B 8192: C 8, W 2048, bt 16, S 1 (65536 + 4096 + 256 =
+    69888 bytes, three CTAs an SM), 47 clusters x 11 tiles (43 x 12 on an
+    H100, which holds 43 such clusters at once); f32 D 784 k 10 B 4096: C
+    1, bt 16, one tile a CTA (50176 + 31360 + 2560 = 84096 bytes, two an
+    SM).  A shape no C holds (k x D large) takes the streamed tile kernel:
+    32-row tiles (16 or 8 where B needs it), a partial per tile, lp and gc
+    (8 bt k bytes) in shared memory.
+    """
+    if B < 8 or B % 8 or D < 1 or k < 1:
+        return None
+    found = list(resident_plans(B, D, k, dtype, max_ctas))
+    if found:
+        return min(found, key=lambda p: (-ctas_per_sm(p.smem, k), p.C, -p.bt, -p.S))
+    bt = next(bt for bt in (32, 16, 8) if B % bt == 0)
+    return HeadPlan(False, bt, 1, D, 1, 1, B // bt, False, 2 * 4 * bt * k)
 
 
 def supported(B: int, D: int, k: int, dtype=torch.float32, family: str = "gaussian") -> bool:
@@ -46,8 +155,7 @@ def supported(B: int, D: int, k: int, dtype=torch.float32, family: str = "gaussi
         family in FAMILIES
         and dtype in _DTYPE_CODE
         and 1 <= k <= MAX_K
-        and D >= 1
-        and pick_bt(B) is not None
+        and plan(B, D, k, dtype) is not None
     )
 
 
@@ -77,45 +185,109 @@ def fused_head_step_reference(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, 
     return g, gc.T @ xb
 
 
-def fused_head_step_at(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str):
+#: (device, C, smem, dtype, k == 1) -> clusters of that shape the card holds at once
+_MAX_CLUSTERS: dict = {}
+#: (device, n_parts, k, D) -> the partial-corr scratch, kept between calls
+_SCRATCH: dict = {}
+#: (device, dtype, B, D, k) -> the HeadPlan of that shape on that card
+_PLANS: dict = {}
+
+
+def _f32_operand(t: torch.Tensor, shape, dev) -> torch.Tensor:
+    """t as the kernel reads it: f32, contiguous, on the head's device;
+    converted only when it is not already so."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"head kernel: expected shape {shape}, got {tuple(t.shape)}")
+    if t.dtype is torch.float32 and t.device == dev and t.is_contiguous():
+        return t
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _copy_bytes(head: torch.Tensor) -> int:
+    """The widest copy every row start of the head is aligned to."""
+    row = head.shape[1] * head.element_size()
+    for nbytes in (16, 4):
+        if row % nbytes == 0 and head.data_ptr() % nbytes == 0:
+            return nbytes
+    return 2
+
+
+def _launch(lib, head, start, B, k, p: HeadPlan, ptrs, family, stream, max_clusters=None) -> int:
+    return lib.sgd_head_step(
+        head.data_ptr(), _DTYPE_CODE[head.dtype], int(start), head.shape[1], k, B, int(p.resident),
+        p.bt, p.C, p.W, p.S, p.tpc, p.n_parts, _copy_bytes(head), int(p.single), p.smem,
+        *ptrs, _FAMILY_CODE[family], stream, max_clusters,
+    )
+
+
+def held_clusters(head: torch.Tensor, B: int, k: int, p: HeadPlan) -> int:
+    """Clusters of p's shape (C CTAs of p.smem bytes) the card holds at
+    once: asked of the CUDA occupancy calculator once per shape class,
+    then remembered."""
+    key = (head.device, p.C, p.smem, head.dtype, k == 1)
+    if key not in _MAX_CLUSTERS:
+        out = ctypes.c_int(0)
+        code = _launch(build.load_library(), head, 0, B, k, p, (None,) * 8, "gaussian", None, ctypes.byref(out))
+        build.check(code, "fused head step (occupancy)")
+        if out.value < 1:
+            raise RuntimeError(f"fused head step: the card holds no cluster of {p.C} CTAs with {p.smem} bytes each")
+        _MAX_CLUSTERS[key] = out.value
+    return _MAX_CLUSTERS[key]
+
+
+def device_plan(head: torch.Tensor, B: int, k: int) -> HeadPlan:
+    """`plan` for this head on its card: the persistent grid is cut to the
+    clusters the card can hold at once, so no cluster waits for another."""
+    D = head.shape[1]
+    p = plan(B, D, k, head.dtype)
+    if p is None or not p.resident:
+        return p
+    held = held_clusters(head, B, k, p)
+    return p if p.n_parts <= held else plan(B, D, k, head.dtype, max_ctas=held * p.C)
+
+
+def fused_head_step_at(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str, plan_override=None):
     """Fused lp / gradient / corr on rows [start, start+B) of the full
-    head; returns (g (B, k), corr (k, D)), f32 on the card."""
+    head; returns (g (B, k), corr (k, D)), f32 on the card.
+    `plan_override` (a HeadPlan) replaces the planned launch parameters: for
+    measuring other tile shapes on the card."""
     if not head.is_cuda:
         return fused_head_step_reference(head, start, w_h, lp_extra, yb, g_mem_b, wb, family)
     n_pad, D = head.shape
     B, k = yb.shape
     if head.dtype not in _DTYPE_CODE or family not in _FAMILY_CODE:
         raise ValueError(f"head kernel takes f32/bf16 heads and {FAMILIES}; got {head.dtype}, {family}")
-    if not supported(B, D, k, head.dtype, family):
-        raise ValueError(f"head kernel: unsupported shape B={B}, D={D}, k={k}")
+    dev = head.device
+    p = plan_override
+    if p is None:
+        key = (dev, head.dtype, B, D, k)
+        p = _PLANS.get(key)
+        if p is None:
+            if not supported(B, D, k, head.dtype, family):
+                raise ValueError(f"head kernel: unsupported shape B={B}, D={D}, k={k}")
+            p = _PLANS[key] = device_plan(head, B, k)
     if not (0 <= start and start + B <= n_pad):
         raise ValueError(f"head kernel: rows [{start}, {start + B}) outside the head's {n_pad} rows")
     if not head.is_contiguous():
         raise ValueError("head kernel: the head must be contiguous")
-    dev = head.device
-
-    def f32(t, shape):
-        t = t.to(device=dev, dtype=torch.float32).contiguous()
-        if tuple(t.shape) != shape:
-            raise ValueError(f"head kernel: expected shape {shape}, got {tuple(t.shape)}")
-        return t
-
-    w = f32(w_h, (k, D))
-    lpe = f32(lp_extra, (B, k))
-    y = f32(yb, (B, k))
-    gm = f32(g_mem_b, (B, k))
-    wt = f32(wb, (B,))
-    bt = pick_bt(B)
+    w = _f32_operand(w_h, (k, D), dev)
+    lpe = _f32_operand(lp_extra, (B, k), dev)
+    y = _f32_operand(yb, (B, k), dev)
+    gm = _f32_operand(g_mem_b, (B, k), dev)
+    wt = _f32_operand(wb, (B,), dev)
     g = torch.empty((B, k), device=dev, dtype=torch.float32)
-    part = torch.empty((B // bt, k, D), device=dev, dtype=torch.float32)
     corr = torch.empty((k, D), device=dev, dtype=torch.float32)
-    lib = build.load_library()
-    code = lib.sgd_head_step(
-        head.data_ptr(), _DTYPE_CODE[head.dtype], int(start), D, k, B, bt,
-        w.data_ptr(), lpe.data_ptr(), y.data_ptr(), gm.data_ptr(), wt.data_ptr(),
-        _FAMILY_CODE[family], g.data_ptr(), part.data_ptr(), corr.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    if p.n_parts == 1:
+        part = corr
+    else:
+        key = (dev, p.n_parts, k, D)
+        part = _SCRATCH.get(key)
+        if part is None:
+            part = _SCRATCH[key] = torch.empty((p.n_parts, k, D), device=dev, dtype=torch.float32)
+    ptrs = (w.data_ptr(), lpe.data_ptr(), y.data_ptr(), gm.data_ptr(), wt.data_ptr(),
+            g.data_ptr(), part.data_ptr(), corr.data_ptr())
+    code = _launch(build.load_library(), head, start, B, k, p, ptrs, family,
+                   torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "fused head step")
     fused_head_step_at.launches += 1
     return g, corr

@@ -39,26 +39,28 @@ def coo_tail_outer_reference(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
 
 
 def _check(bt, blk: int, t: torch.Tensor, shape, what: str) -> None:
-    if t.dtype not in _DTYPE_CODE or bt.vals.dtype != t.dtype:
-        raise ValueError(f"{what}: takes f32/f64 operands of the tail's dtype; got {t.dtype} and {bt.vals.dtype}")
-    if not (bt.vals.is_cuda and bt.vals.device == t.device):
+    if t.dtype not in _DTYPE_CODE or bt.dtype != t.dtype:
+        raise ValueError(f"{what}: takes f32/f64 operands of the tail's dtype; got {t.dtype} and {bt.dtype}")
+    if bt.device != t.device:
         raise ValueError(f"{what}: the BlockCOO tail must be on {t.device}")
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous {shape} operand, got {tuple(t.shape)}")
-    if not 0 <= blk < bt.n_blocks:
-        raise ValueError(f"{what}: block {blk} outside the tail's {bt.n_blocks} blocks")
+    if not 0 <= blk < len(bt.addr):
+        raise ValueError(f"{what}: block {blk} outside the tail's {len(bt.addr)} blocks")
 
 
 def coo_tail_forward(bt, blk: int, w: torch.Tensor) -> torch.Tensor:
-    """K3: the tail's part of the block's linear predictors, (B, k)."""
+    """K3: the tail's part of the block's linear predictors, (B, k).  The
+    block's views go to the kernel by the addresses the BlockCOO computed
+    when it was packed: no tensor is indexed here."""
     if not w.is_cuda:
         return coo_tail_forward_reference(bt, blk, w)
     k = w.shape[0]
     _check(bt, blk, w, (k, bt.n_cols), "coo_tail_forward")
     out = torch.empty((bt.batch, k), dtype=w.dtype, device=w.device)
+    row_ptr, cols, vals = bt.addr[blk][:3]
     code = build.load_library().sgd_coo_tail_forward(
-        bt.row_ptr[blk].data_ptr(), bt.cols[blk].data_ptr(), bt.vals[blk].data_ptr(), w.data_ptr(),
-        _DTYPE_CODE[w.dtype], bt.batch, k, bt.n_cols, out.data_ptr(),
+        row_ptr, cols, vals, w.data_ptr(), _DTYPE_CODE[w.dtype], bt.batch, k, bt.n_cols, out.data_ptr(),
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     build.check(code, "coo_tail_forward")
@@ -67,19 +69,17 @@ def coo_tail_forward(bt, blk: int, w: torch.Tensor) -> torch.Tensor:
 
 
 def coo_tail_outer(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
-    """K4: the tail's part of the block's rank-B update, (k, p)."""
+    """K4: the tail's part of the block's rank-B update, (k, p).  The kernel
+    writes every column, so corr is allocated uninitialised."""
     if not gc.is_cuda:
         return coo_tail_outer_reference(bt, blk, gc)
     k = gc.shape[1]
     _check(bt, blk, gc, (bt.batch, k), "coo_tail_outer")
-    corr = torch.zeros((k, bt.n_cols), dtype=gc.dtype, device=gc.device)
-    if bt.max_distinct == 0:  # a tail without entries: nothing to launch
-        return corr
+    corr = torch.empty((k, bt.n_cols), dtype=gc.dtype, device=gc.device)
+    col_seg, rows_by_col, vals_by_col, heavy_cols = bt.addr[blk][3:]
     code = build.load_library().sgd_coo_tail_outer(
-        bt.col_ptr[blk].data_ptr(), bt.col_ids[blk].data_ptr(), bt.col_order[blk].data_ptr(),
-        bt.n_distinct[blk:].data_ptr(), bt.rows[blk].data_ptr(), bt.vals[blk].data_ptr(), gc.data_ptr(),
-        _DTYPE_CODE[gc.dtype], bt.max_distinct, k, bt.n_cols, corr.data_ptr(),
-        torch.cuda.current_stream(gc.device).cuda_stream,
+        col_seg, rows_by_col, vals_by_col, heavy_cols, bt.max_heavy, gc.data_ptr(), _DTYPE_CODE[gc.dtype], k,
+        bt.n_cols, corr.data_ptr(), torch.cuda.current_stream(gc.device).cuda_stream,
     )
     build.check(code, "coo_tail_outer")
     coo_tail_outer.launches += 1

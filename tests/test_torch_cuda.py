@@ -8,7 +8,7 @@ machine that has only torch (tests/conftest.py needs jax, hence
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K2 as tests/test_pallas.py (f32: g atol 1e-5, corr atol 2e-3;
-bf16: g 3e-2, corr 2e-2 x max|corr|); K1 one epoch at 1e-5 x scale; K3 / K4
+bf16: g 3e-2, corr 2e-2 x max|corr|) and bit-identical across two runs; K1 one epoch at 1e-5 x scale; K3 / K4
 at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
 across two runs; fits through a kernel vs the plain step path on the card
 at 1e-4 x scale; the probes P1 at 1e-5 x max and bit-identical across two
@@ -22,7 +22,7 @@ import torch
 import scipy.sparse as sp
 
 import sgdnet_tpu_torch as st
-from sgdnet_tpu_torch.core.sparse import BlockCOO, PaddedCSR
+from sgdnet_tpu_torch.core.sparse import HEAVY_LEN, BlockCOO, PaddedCSR
 from sgdnet_tpu_torch.families import get_family
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel as ek
@@ -41,13 +41,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("family,k", [("gaussian", 1), ("binomial", 1), ("multinomial", 10), ("mgaussian", 3)])
-def test_head_kernel_matches_twin(dev, family, k, dtype):
-    rng = np.random.default_rng(k)
-    n_pad, B, D = 8192, 1024, 784
+def _head_args(dev, family, k, dtype, n_pad, B, D, start, seed):
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
-    head = t(rng.normal(size=(n_pad, D))).to(dtype)
+    head = t(rng.standard_normal((n_pad, D), dtype=np.float32)).to(dtype)
     w = t(rng.normal(size=(k, D)) / np.sqrt(D))
     lpe = t(0.1 * rng.normal(size=(B, k)))
     if family == "binomial":
@@ -57,18 +54,52 @@ def test_head_kernel_matches_twin(dev, family, k, dtype):
     else:
         y = t(rng.normal(size=(B, k)))
     gm, wb = t(0.1 * rng.normal(size=(B, k))), t(rng.random(B) < 0.9)
-    args = (head, 2048, w, lpe, y, gm, wb, family)
+    return (head, start, w, lpe, y, gm, wb, family)
+
+
+def _head_check(args, dtype):
+    """K2 against its twin at the bounds of tests/test_pallas.py (f32: the
+    two differ by summation order only; bf16: w and gc are rounded to bf16
+    in both, and a g near a rounding boundary of gc moves corr by one bf16
+    ulp of gc times a head entry), and identical bits over two runs (no
+    atomics: every sum has a fixed order)."""
     before = hk.fused_head_step_at.launches
     g, corr = hk.fused_head_step_at(*args)
     assert hk.fused_head_step_at.launches == before + 1
     g_ref, corr_ref = hk.fused_head_step_reference(*args)
+    g2, corr2 = hk.fused_head_step_at(*args)
     torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(corr, corr2)
     if dtype == torch.float32:
         torch.testing.assert_close(g, g_ref, atol=1e-5, rtol=0)
         torch.testing.assert_close(corr, corr_ref, atol=2e-3, rtol=0)
     else:
         torch.testing.assert_close(g, g_ref, atol=3e-2, rtol=0)
         torch.testing.assert_close(corr, corr_ref, atol=2e-2 * max(float(corr_ref.abs().max()), 1.0), rtol=0)
+
+
+# (n_pad, B, D): the dense shape; a row that is not a multiple of 16 bytes
+# with a B that only 8 divides; slice C's width (a cluster of 8 strips)
+HEAD_SHAPES = [(8192, 1024, 784), (4128, 1032, 785), (24576, 8192, 16384)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=lambda s: f"B{s[1]}-D{s[2]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family,k", [("gaussian", 1), ("binomial", 1), ("multinomial", 10), ("mgaussian", 3)])
+def test_head_kernel_matches_twin(dev, family, k, dtype, shape):
+    n_pad, B, D = shape
+    _head_check(_head_args(dev, family, k, dtype, n_pad, B, D, n_pad - B - (B if D < 16384 else 0), k), dtype)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 256), (torch.bfloat16, 787), (torch.float32, 785),
+                                     (torch.bfloat16, 16384)])
+def test_head_kernel_at_128_classes(dev, dtype, D):
+    """k = MAX_K: the class-chunked accumulators in shared memory on the
+    narrow heads, the streamed tile kernel at D 16384 (no cluster holds a
+    128 x 16384 w); D 787 in bf16 is a row only 2-byte aligned."""
+    B = 1032 if D < 16384 else 1024
+    assert hk.plan(B, D, 128, dtype).resident is (D < 16384)
+    _head_check(_head_args(dev, "multinomial", 128, dtype, 2 * B, B, D, B, D), dtype)
 
 
 def test_head_kernel_rejects_what_it_does_not_take(dev):
@@ -133,16 +164,24 @@ def test_fit_through_kernels_matches_plain_path(dev, name, family):
 
 
 def _zipf_tail(dev, dtype, n=4096, p=3000, per_row=9, B=1024, seed=0):
-    """A Zipf-column tail (columns recur within a block), packed per block."""
+    """A Zipf-column tail (columns recur within a block), packed per block.
+    Every eighth row also holds column 7, so each block has a column of
+    more than 4 x HEAVY_LEN entries (a warp of K4 sums it), and the last
+    block's rows from 64 on are empty (its light columns stay short)."""
     rng = np.random.default_rng(seed)
     wz = (np.arange(p) + 10.0) ** -1.15
     cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random((n, per_row))).clip(0, p - 1)
-    counts = rng.integers(0, per_row + 1, n)
+    cols[::8, 0] = 7
+    counts = rng.integers(1, per_row + 1, n)
+    counts[n - B + 64:] = 0
     keep = np.arange(per_row)[None, :] < counts[:, None]
     rows = np.repeat(np.arange(n)[:, None], per_row, 1)[keep]
     x = sp.csr_matrix((rng.normal(size=keep.sum()), (rows, cols[keep])), shape=(n, p))
     x.sum_duplicates()
-    return BlockCOO.from_padded(PaddedCSR.from_scipy(x, dtype=dtype, device=dev), B)
+    bt = BlockCOO.from_padded(PaddedCSR.from_scipy(x, dtype=dtype, device=dev), B)
+    seg = bt.col_seg.cpu().numpy()
+    assert (np.diff(seg, axis=1)[:-1].max(axis=1) > 4 * HEAVY_LEN).all() and bt.max_heavy > 1
+    return bt
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

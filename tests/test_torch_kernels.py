@@ -12,6 +12,15 @@ in interpret mode as the JAX package's own tests run it:
     True) for one f32 epoch from the same state and block starts, across
     5 families x 3 penalties with offsets / penalty factors / refresh on
     and off, at 1e-5 relative;
+  * K2's launch plan (head_kernel.plan) over a grid of shapes: shared
+    memory within a CTA's 232448 bytes, strips that tile D, a grid that
+    tiles B, every shape the gate took before still taken, and the two
+    shapes the fit paths run;
+  * K2's summation order on the card (strip and segment parts of lp in
+    rank and segment order; rows in order within a tile, tiles in order
+    within a cluster; the clusters' partials in `sum_partials` order),
+    replayed in numpy f32: against the twin at 1e-5 x scale and against
+    the Pallas kernel at the bounds above;
   * the Hopper gates.
 
 The kernels themselves run only on the card: tests/test_torch_cuda.py
@@ -94,6 +103,149 @@ def test_head_wrapper_on_cpu_is_the_twin():
     b = hk.fused_head_step_reference(head, 128, w, lpe, y[128:], gm[128:], wb, "multinomial")
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     assert hk.fused_head_step_at.launches == before  # the twin never counts as a launch
+
+
+def _plan_ok(p, B, D, k, dtype):
+    es = dtype.itemsize
+    ve = 16 // es
+    assert p.smem <= hk.SMEM_LIMIT == 232448 and B % p.bt == 0 and p.bt in (8, 16, 32)
+    n_tiles = B // p.bt
+    if not p.resident:  # the streamed tile kernel: a partial per tile, lp and gc in shared memory
+        assert (p.n_parts, p.smem) == (n_tiles, 8 * p.bt * k)
+        return
+    assert p.C in (1, 2, 4, 8) and p.W % ve == 0
+    assert p.C * p.W >= D > (p.C - 1) * p.W  # C strips tile D, none empty
+    assert 1 <= p.S <= min(3, p.tpc)
+    assert p.n_parts * p.tpc >= n_tiles > (p.n_parts - 1) * p.tpc  # the clusters tile B, none idle
+    assert p.ctas <= hk.N_SM * hk.ctas_per_sm(p.smem, k)  # a persistent grid: all resident at once
+    kc = 1 if k == 1 else 64 // ve
+    assert p.single is (k <= kc and p.W // ve <= hk.THREADS)
+    part_rows = max(p.bt, 16)  # 8-row tiles are cut into two column segments
+    assert p.smem == (p.S * p.bt * p.W * es + k * p.W * es + (0 if p.single else 4 * k * p.W)
+                      + 4 * k * (2 * part_rows + 2 * p.bt))
+
+
+@pytest.mark.parametrize("B", [8, 1032, 4096, 8192])
+@pytest.mark.parametrize("D", [1, 9, 784, 785, 4096, 16384])
+def test_head_plan_grid(B, D):
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 3, 10, 128):
+            p = hk.plan(B, D, k, dtype)
+            _plan_ok(p, B, D, k, dtype)
+            # cut to fewer CTAs (a card that holds fewer clusters) it still tiles B
+            q = hk.plan(B, D, k, dtype, max_ctas=40)
+            _plan_ok(q, B, D, k, dtype)
+            assert not q.resident or q.ctas <= 40
+            # every shape the gate took before (8 | B, D >= 1, k <= 128) is taken
+            assert hk.supported(B, D, k, dtype, "gaussian")
+    assert hk.plan(B + 4, D, 1, torch.float32) is None and not hk.supported(B + 4, D, 1)
+
+
+def test_head_plan_at_the_paths_shapes():
+    # the sparse north-star shape: eight strips of 2048 bf16 columns, the
+    # tile resident between the two products (one read of the head), three
+    # CTAs an SM, one partial corr per cluster
+    p = hk.plan(8192, 16384, 1, torch.bfloat16)
+    assert p.resident and p.single and (p.C, p.W, p.bt) == (8, 2048, 16)
+    assert hk.ctas_per_sm(p.smem, 1) == 3 and p.ctas <= 3 * 132
+    assert p.n_parts * 1 * 16384 * 4 <= 4 * 2**20  # partials: a few MB where one per 32-row tile was 16.8 MB
+    # the dense multinomial shape: a whole 16-row tile of 784 f32 columns in one CTA
+    p = hk.plan(4096, 784, 10, torch.float32)
+    assert p.resident and p.single and (p.C, p.W, p.bt, p.tpc) == (1, 784, 16, 1)
+    # no cluster of eight holds a 128 x 16384 w: the streamed kernel
+    assert not hk.plan(8192, 16384, 128, torch.bfloat16).resident
+
+
+def _round_to(a, dtype):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype).float().numpy()
+
+
+def _sum_partials(parts):
+    """csrc/common.h `sum_partials`: part t goes to group t % 8, each group
+    adds its parts in order, the 8 group sums are added in group order."""
+    groups = [np.zeros_like(parts[0]) for _ in range(8)]
+    for t, part in enumerate(parts):
+        groups[t % 8] = groups[t % 8] + part
+    acc = groups[0]
+    for grp in groups[1:]:
+        acc = acc + grp
+    return acc
+
+
+def _replay_head_step(head, start, w, lpe, yb, gm, wb, family, p, dtype):
+    """The resident K2 kernel's sums in its own order, in numpy f32 (within
+    a warp's segment numpy's own order stands in for the lanes')."""
+    f32 = np.float32
+    B, k = yb.shape
+    D = head.shape[1]
+    x = _round_to(head, dtype)[start:start + B]
+    wq = _round_to(w, dtype)
+    nseg = max(8 // (p.bt // 2), 1)
+    g_out = np.zeros((B, k), f32)
+    partials = []
+    for q in range(p.n_parts):
+        corr = np.zeros((k, D), f32)
+        for t in range(q * p.tpc, min((q + 1) * p.tpc, B // p.bt)):
+            rows = slice(t * p.bt, (t + 1) * p.bt)
+            lp = np.zeros((p.bt, k), f32)
+            for rank in range(p.C):  # rank order; within a rank segment 0 + segment 1
+                lo, hi = rank * p.W, min((rank + 1) * p.W, D)
+                nvec = -(-(hi - lo) // (16 // dtype.itemsize))
+                vps = -(-nvec // nseg) * (16 // dtype.itemsize)
+                segs = [x[rows, lo + s * vps:min(lo + (s + 1) * vps, hi)] @ wq[:, lo + s * vps:min(lo + (s + 1) * vps, hi)].T
+                        for s in range(2)]
+                lp = lp + (segs[0].astype(f32) + (segs[1].astype(f32) if nseg > 1 else f32(0)))
+            lp = lp + lpe[rows]
+            if family == "multinomial":
+                e = np.exp(lp - lp.max(1, keepdims=True))
+                g = e / e.sum(1, keepdims=True) - yb[rows]
+            elif family == "binomial":
+                g = 1 / (1 + np.exp(-lp)) - yb[rows]
+            else:
+                g = lp - yb[rows]
+            g = (g * wb[rows, None]).astype(f32)
+            g_out[rows] = g
+            gc = _round_to(g - gm[rows], dtype)
+            for r in range(p.bt):  # rows in order, tiles in order
+                corr = corr + gc[r][:, None] * x[t * p.bt + r][None, :]
+        partials.append(corr)
+    return g_out, partials[0] if len(partials) == 1 else _sum_partials(partials)
+
+
+@pytest.mark.parametrize("cut", ["planned", "cluster of 4, 8-row tiles", "sixteen 8-row tiles"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family,k", [("binomial", 1), ("multinomial", 3), ("mgaussian", 2)])
+def test_head_kernel_order_replayed(family, k, dtype, cut):
+    B, start, tdt = 128, 128, getattr(torch, dtype)
+    head, w, lpe, y, gm, wb = _head_case(family, k, seed=10 + k)
+    yb, gmb = y[start:start + B], gm[start:start + B]
+    D = head.shape[1]
+    if cut == "planned":
+        p = hk.plan(B, D, k, tdt)
+        _plan_ok(p, B, D, k, tdt)
+    elif cut == "cluster of 4, 8-row tiles":  # 12 CTAs: 3 clusters walk 6 tiles each, two segments a row pair
+        p = next(q for q in hk.resident_plans(B, D, k, tdt, max_ctas=12) if (q.C, q.bt) == (4, 8))
+        assert (p.n_parts, p.tpc) == (3, 6)
+    else:  # 16 partials: sum_partials' groups of 8 wrap
+        p = next(q for q in hk.resident_plans(B, D, k, tdt) if (q.C, q.bt) == (1, 8))
+        assert p.n_parts == 16
+    g_r, corr_r = _replay_head_step(head, start, w, lpe, yb, gmb, wb, family, p, tdt)
+    g_t, corr_t = hk.fused_head_step_reference(torch.tensor(head).to(tdt), start, torch.tensor(w), torch.tensor(lpe),
+                                               torch.tensor(yb), torch.tensor(gmb), torch.tensor(wb), family)
+    g_j, corr_j = j_head_step(jnp.asarray(head).astype(getattr(jnp, dtype)), jnp.int32(start), jnp.asarray(w),
+                              jnp.asarray(lpe), jnp.asarray(yb), jnp.asarray(gmb), jnp.asarray(wb), B, family,
+                              interpret=True)
+    scale = max(float(corr_t.abs().max()), 1.0)
+    if dtype == "float32":  # summation order only
+        np.testing.assert_allclose(g_r, g_t.numpy(), atol=1e-5)
+        np.testing.assert_allclose(corr_r, corr_t.numpy(), atol=1e-5 * scale)
+        np.testing.assert_allclose(g_r, np.asarray(g_j), atol=1e-5)
+        np.testing.assert_allclose(corr_r, np.asarray(corr_j), atol=2e-3)
+    else:  # a g next to a rounding boundary of gc moves corr by a bf16 ulp of gc times a head entry
+        np.testing.assert_allclose(g_r, g_t.numpy(), atol=3e-2)
+        np.testing.assert_allclose(corr_r, corr_t.numpy(), atol=2e-2 * scale)
+        np.testing.assert_allclose(g_r, np.asarray(g_j), atol=3e-2)
+        np.testing.assert_allclose(corr_r, np.asarray(corr_j), atol=2e-2 * max(np.abs(np.asarray(corr_j)).max(), 1.0))
 
 
 # ---------------------------------------------------------------------------

@@ -245,7 +245,8 @@ def test_p3_twin_matches_pallas(head, n_buf, chunk_rows):
 def _replay_p2(h, start, B, bt, ct=256):
     """csrc/probes.cu colsum_tile + sum_partials: CTA (strip, tile), one
     thread per column pair summing its tile's rows in order, then the tiles'
-    partial rows added in tile order."""
+    partial rows added in `sum_partials`' fixed order (8 groups of every
+    eighth part, each in order, then the groups in order)."""
     D = h.shape[1]
     part = np.zeros((B // bt, D), np.float32)
     for tile in range(B // bt):
@@ -258,9 +259,12 @@ def _replay_p2(h, start, B, bt, ct=256):
                 for r in range(bt):
                     acc += h[start + tile * bt + r, 2 * j2 : 2 * j2 + 2]
                 part[tile, 2 * j2 : 2 * j2 + 2] = acc
-    out = np.zeros(D, np.float32)
+    groups = np.zeros((8, D), np.float32)  # part t goes to group t % 8, in order
     for tile in range(B // bt):
-        out += part[tile]
+        groups[tile % 8] += part[tile]
+    out = groups[0].copy()
+    for grp in groups[1:]:  # the 8 group sums in group order
+        out += grp
     return out
 
 

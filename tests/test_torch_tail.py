@@ -5,11 +5,15 @@
     utils/convert.layout_from_jax), pad entries and repeated columns
     included: within 1e-12 at f64 (both are the same scatter-add);
   * the segment walks the CUDA kernels make over the port's views
-    (`row_ptr`; `col_order` / `col_ids` / `col_ptr`), replayed here in
-    numpy: they give the twins' sums (1e-12) and never read a pad entry;
-  * the views themselves, and the wrappers' CPU dispatch (no launch is
-    counted).
+    (`row_ptr`; `rows_by_col` / `vals_by_col` / `col_seg` / `heavy_cols`),
+    replayed here in numpy, K4's warp sum of a heavy column lane by lane:
+    they give the twins' sums (1e-12) and never read a pad entry, also on
+    a block with a column heavier than HEAVY_LEN and on an empty block;
+  * the views themselves, the per-block address table, and the wrappers'
+    CPU dispatch (no launch is counted).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +23,7 @@ import torch
 
 from sgdnet_tpu.core import sparse as jsparse
 from sgdnet_tpu.solver import saga as jsaga
-from sgdnet_tpu_torch.core.sparse import BlockCOO, PaddedCSR
+from sgdnet_tpu_torch.core.sparse import HEAVY_LEN, BlockCOO, PaddedCSR
 from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.utils.convert import layout_from_jax
 
@@ -28,20 +32,28 @@ torch.set_num_threads(1)
 
 def _tail(seed, n=192, p=300, per_row=7, B=64):
     """A row-padded tail whose rows repeat columns across a block (Zipf
-    columns), with some empty rows, packed for blocks of B rows."""
+    columns), with some empty rows, packed for blocks of B rows.  Seed 2
+    also puts column 3 into most rows (a column of more than 2 x HEAVY_LEN
+    entries in a block) and leaves the second of its 4 blocks empty."""
     rng = np.random.default_rng(seed)
     w = (np.arange(p) + 5.0) ** -1.1
+    if seed == 2:
+        n = 4 * B
     counts = rng.integers(0, per_row + 1, n)
     counts[::17] = 0
+    if seed == 2:
+        counts[B : 2 * B] = 0
     rows = np.repeat(np.arange(n), counts)
     cols = np.searchsorted(np.cumsum(w) / w.sum(), rng.random(len(rows))).clip(0, p - 1)
+    if seed == 2:
+        cols[np.r_[True, np.diff(rows) > 0]] = 3  # each non-empty row's first entry
     x = sp.csr_matrix((rng.normal(size=len(rows)), (rows, cols)), shape=(n, p))
     x.sum_duplicates()
     jt = jsparse.PaddedCSR.from_scipy(x, dtype=jnp.float64)
     return jsparse.BlockCOO.from_padded(jt, B), x
 
 
-@pytest.fixture(scope="module", params=[0, 1])
+@pytest.fixture(scope="module", params=[0, 1, 2])
 def blocks(request):
     jb, x = _tail(request.param)
     return jb, layout_from_jax(jb), x
@@ -55,19 +67,48 @@ def test_block_coo_carries_over_and_views_hold(blocks):
     # counts are exact
     tp = PaddedCSR.from_scipy(x, dtype=torch.float64, device="cpu")
     own = BlockCOO.from_padded(tp, jb.batch)
-    for f in ("rows", "cols", "vals", "counts", "row_ptr", "col_order", "col_ids", "col_ptr", "n_distinct"):
+    fields = ("rows", "cols", "vals", "counts", "row_ptr", "rows_by_col", "vals_by_col", "col_seg", "heavy_cols")
+    for f in fields:
         np.testing.assert_array_equal(getattr(own, f).numpy(), getattr(tb, f).numpy(), err_msg=f)
+    assert own.max_heavy == tb.max_heavy
     B = jb.batch
     for b in range(tb.n_blocks):
         c = int(tb.counts[b])
         assert c == int(x[b * B : (b + 1) * B].nnz)
-        rows, cols = tb.rows[b, :c].numpy(), tb.cols[b, :c].numpy()
+        rows, cols, vals = tb.rows[b, :c].numpy(), tb.cols[b, :c].numpy(), tb.vals[b, :c].numpy()
         np.testing.assert_array_equal(np.diff(tb.row_ptr[b].numpy()), np.bincount(rows, minlength=B))
-        order = tb.col_order[b, :c].numpy()
-        assert sorted(order) == list(range(c)) and np.all(np.diff(cols[order]) >= 0)
-        u = int(tb.n_distinct[b])
-        np.testing.assert_array_equal(tb.col_ids[b, :u].numpy(), np.unique(cols))
+        # the column-ordered copy is the stable sort by column, and col_seg
+        # maps every one of the p columns to its segment of it
+        order = np.argsort(cols, kind="stable")
+        np.testing.assert_array_equal(tb.rows_by_col[b, :c].numpy(), rows[order])
+        np.testing.assert_array_equal(tb.vals_by_col[b, :c].numpy(), vals[order])
+        seg = tb.col_seg[b].numpy()
+        assert seg[0] == 0 and seg[-1] == c and len(seg) == tb.n_cols + 1
+        np.testing.assert_array_equal(np.diff(seg), np.bincount(cols, minlength=tb.n_cols))
+        heavy = tb.heavy_cols[b].numpy()
+        np.testing.assert_array_equal(heavy[heavy >= 0], np.flatnonzero(np.diff(seg) > HEAVY_LEN))
+        assert (heavy[: (heavy >= 0).sum()] >= 0).all()  # the -1 pad comes last
     assert (tb.counts < tb.rows.shape[1]).all() or tb.rows.shape[1] % 128 == 0
+    # the address table: one tuple a block, each view's row of that block;
+    # any new BlockCOO (dataclasses.replace too) rebuilds it from its own tensors
+    assert len(tb.addr) == tb.n_blocks and tb.dtype == tb.vals.dtype and tb.device == tb.vals.device
+    for b in range(tb.n_blocks):
+        for a, f in zip(tb.addr[b], BlockCOO.ADDRESSED):
+            assert a == getattr(tb, f)[b].data_ptr(), f
+    moved = dataclasses.replace(tb, vals=tb.vals.clone())
+    assert moved.addr[0][2] == moved.vals.data_ptr() != tb.addr[0][2]
+    with pytest.raises(ValueError, match="contiguous"):
+        dataclasses.replace(tb, col_seg=tb.col_seg[:, ::2])
+
+
+def test_heavy_and_empty_blocks_are_in_the_cases():
+    """Seed 2 is the case the balanced K4 walk exists for: a column above
+    2 x HEAVY_LEN entries in a block, and a block without entries."""
+    tb = layout_from_jax(_tail(2)[0])
+    per_col = np.diff(tb.col_seg.numpy(), axis=1)
+    assert per_col.max() > 2 * HEAVY_LEN and tb.max_heavy >= 1
+    assert tb.counts.tolist()[1] == 0 and (tb.heavy_cols[1] == -1).all() and (tb.col_seg[1] == 0).all()
+    assert layout_from_jax(_tail(0)[0]).max_heavy == 0  # and a tail without heavy columns packs a -1 column
 
 
 def _walk_forward(tb, blk, w):
@@ -83,17 +124,31 @@ def _walk_forward(tb, blk, w):
 
 
 def _walk_outer(tb, blk, gc):
-    """K4's segment walk: one (column, class) sums its column segment."""
+    """K4's walk: every column of corr is written.  A light (column, class)
+    is one thread summing its segment of the column-ordered copy in order;
+    a heavy column is a warp: lane l sums entries l, l + 32, ... in order,
+    then the 32 lane sums meet in the xor butterfly of `warp_sum_t`."""
     k, p = gc.shape[1], tb.n_cols
-    cp, ids, order = tb.col_ptr[blk].numpy(), tb.col_ids[blk].numpy(), tb.col_order[blk].numpy()
-    rows, vals = tb.rows[blk].numpy(), tb.vals[blk].numpy()
-    corr = np.zeros((k, p))
-    for u in range(int(tb.n_distinct[blk])):
+    seg, heavy = tb.col_seg[blk].numpy(), tb.heavy_cols[blk].numpy()
+    rows, vals = tb.rows_by_col[blk].numpy(), tb.vals_by_col[blk].numpy()
+    corr = np.full((k, p), np.nan)
+    for j in range(p):
+        if seg[j + 1] - seg[j] > HEAVY_LEN:
+            continue  # a warp of the heavy CTAs writes it
         acc = np.zeros(k)
-        for s in range(cp[u], cp[u + 1]):
-            e = order[s]
-            acc += vals[e] * gc[rows[e]]
-        corr[:, ids[u]] = acc
+        for s in range(seg[j], seg[j + 1]):
+            acc += vals[s] * gc[rows[s]]
+        corr[:, j] = acc
+    for j in heavy[heavy >= 0]:
+        lanes = np.zeros((32, k))
+        for lane in range(32):
+            for s in range(seg[j] + lane, seg[j + 1], 32):
+                lanes[lane] += vals[s] * gc[rows[s]]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[np.arange(32) ^ o]
+        assert (lanes == lanes[0]).all()  # every lane ends with the same bits
+        corr[:, j] = lanes[0]
+    assert seg[p] == int(tb.counts[blk]) and not np.isnan(corr).any()  # no pad entry read, no column left out
     return corr
 
 
@@ -142,9 +197,9 @@ def test_counts_recovered_from_pad_entries():
     cols = np.array([[4, 2, 4, 0, 0], [0, 0, 0, 0, 0]], np.int32)
     vals = np.array([[1.0, 2.0, 3.0, 0.0, 0.0], [0.0] * 5])
     b = BlockCOO.from_arrays(rows, cols, vals, batch=2, n_cols=6)
-    assert b.counts.tolist() == [3, 0] and b.n_distinct.tolist() == [2, 0] and b.max_distinct == 2
+    assert b.counts.tolist() == [3, 0] and b.max_heavy == 0 and b.heavy_cols.tolist() == [[-1], [-1]]
     assert b.row_ptr.tolist() == [[0, 1, 3], [0, 0, 0]]
-    assert b.col_ids[0].tolist() == [2, 4] and b.col_ptr[0].tolist() == [0, 1, 3]
-    assert b.col_order[0, :3].tolist() == [1, 0, 2]
+    assert b.col_seg.tolist() == [[0, 0, 0, 1, 1, 3, 3], [0] * 7]
+    assert b.rows_by_col[0, :3].tolist() == [1, 0, 1] and b.vals_by_col[0, :3].tolist() == [2.0, 1.0, 3.0]
     with pytest.raises(ValueError, match="ascend"):
         BlockCOO.from_arrays(np.array([[1, 0]], np.int32), np.array([[0, 1]], np.int32), np.ones((1, 2)), 2, 3)
