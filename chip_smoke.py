@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   3. K2 (fused head step) against its plain torch twin at the dense
      multinomial shape n_pad=65536, D=784, B=4096, f32 and bf16, on rows
      that are not a multiple of 16 bytes (D 785, 786) with a B only 8
-     divides, and at k = 128, with identical bits over two runs; its time,
-     device time and GB/s of head beside the two torch.matmul products;
+     divides, and at k = 128 (a narrow head, and a wide one that takes the
+     streamed tile kernel, by its name in a profile), with identical bits
+     over two runs; its time, device time and GB/s of head beside the two
+     torch.matmul products;
   4. K1 (whole-epoch kernel) against its twin, one epoch on the bundled
      datasets and a seeded poisson set;
   5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, held against
@@ -70,11 +72,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-#: the device kernels one K2 call launches, by their names in a profile
-K2_KERNELS = ("head_step_resident", "head_step_streamed", "sum_partials")
 #: the times this script measured on an NVIDIA H100 80GB HBM3 at 700.00 W
 #: before K2 and K4 were redesigned (K2: a 32-row tile per CTA, read twice;
-#: K4: one thread per column): ms a call and ms on the device
+#: K4: one thread per column): ms a call and ms on the device.  Printed
+#: beside the new times only: the `kernels` line holds what this run measured
 EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
            "k4_probe_shape": (0.0942, 0.0307)}
 #: H100 SXM peaks (NVIDIA's data sheet): device memory rate, FP32 outside
@@ -106,29 +107,12 @@ def roofline(nbytes: float, flops: float, peak: float) -> dict:
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _self_device_us(e) -> float:
-    return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
-
-
 def device_ms(fn, reps: int, names) -> float | None:
-    """Device time per call of fn, whose wrapper launches each kernel named
-    in `names` once: torch.profiler over `reps` calls after a warm-up, each
-    kernel's device time per recorded launch, summed over the kernels.  Per
-    recorded launch, not over `reps`: a profile can keep fewer kernel
-    records than launches, and their sum over `reps` then reads below the
-    kernel's bytes bound.  None when the profiler saw no device time for
-    them."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call of fn over the kernels named in `names`
+    (torch.profiler, per recorded launch; None where it saw none)."""
+    from sgdnet_tpu_torch.utils.device import kernel_device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and _self_device_us(e) > 0 and any(nm in e.key for nm in names)]
-    return sum(_self_device_us(e) / e.count for e in kern) / 1e3 if kern else None
+    return kernel_device_ms(fn, reps, names)
 
 
 def _fmt(v) -> str:
@@ -158,14 +142,17 @@ def phase_k2(rng, dev):
     from sgdnet_tpu_torch.solver import head_kernel as hk
 
     n_pad, B, start = 65536, 4096, 8192
-    # (family, D, k, B): the dense shapes; a row that is not a multiple of 16
-    # bytes (f32 D 785; bf16 D 785 is only 2-byte aligned, D 786 4-byte) with
-    # a B that only 8 divides; k = 128 on a small head
-    cases = [("gaussian", 784, 1, B), ("binomial", 784, 1, B), ("multinomial", 784, 10, B),
-             ("mgaussian", 784, 10, B), ("binomial", 4096, 1, B), ("multinomial", 785, 10, 1032),
-             ("binomial", 786, 1, 1032), ("multinomial", 256, 128, 1032)]
+    # (family, D, k, B, head rows): the dense shapes; a row that is not a
+    # multiple of 16 bytes (f32 D 785; bf16 D 785 is only 2-byte aligned, D
+    # 786 4-byte) with a B that only 8 divides; k = 128 on a narrow head
+    # (resident, corr in shared memory) and on a wide one, where no cluster
+    # holds w and the streamed tile kernel runs
+    cases = [("gaussian", 784, 1, B, n_pad), ("binomial", 784, 1, B, n_pad), ("multinomial", 784, 10, B, n_pad),
+             ("mgaussian", 784, 10, B, n_pad), ("binomial", 4096, 1, B, n_pad), ("multinomial", 785, 10, 1032, n_pad),
+             ("binomial", 786, 1, 1032, n_pad), ("multinomial", 256, 128, 1032, n_pad),
+             ("multinomial", 4096, 128, 1032, 16384)]
     worst_f32 = 0.0
-    for family, D, k, B in cases:
+    for family, D, k, B, n_pad in cases:
         head32 = torch.as_tensor(rng.standard_normal((n_pad, D), dtype=np.float32), device=dev)
         # w scaled so lp is O(1), as on a fitted path
         w = torch.as_tensor(rng.standard_normal((k, D), dtype=np.float32) / np.sqrt(D), device=dev)
@@ -187,6 +174,13 @@ def phase_k2(rng, dev):
             same = all(torch.equal(u, v) for u, v in zip((g, corr), hk.fused_head_step_at(*args)))
             torch.cuda.synchronize()
             check(same, f"K2 gave different bits in two runs: {family} D={D} k={k} {dtype}")
+            # only the wide k = 128 head streams, and a profile shows the kernel `plan` names
+            kernel = "head_step_streamed" if (D, k) == (4096, 128) else "head_step_resident"
+            check(hk.plan(B, D, k, dtype).resident == (kernel == "head_step_resident"),
+                  f"K2 D={D} k={k} {dtype}: `plan` does not take the {kernel} kernel")
+            if kernel == "head_step_streamed":
+                check(device_ms(lambda: hk.fused_head_step_at(*args), 5, (kernel,)) is not None,
+                      f"K2 D={D} k={k} {dtype}: the profile shows no {kernel}")
             eg = float((g - g_ref).abs().max())
             ec = float((corr - corr_ref).abs().max())
             cmax = float(corr_ref.abs().max())
@@ -197,12 +191,12 @@ def phase_k2(rng, dev):
             else:
                 ok = eg <= 3e-2 and ec <= 2e-2 * max(cmax, 1.0)
                 bound = "g 3e-2, corr 2e-2*max|corr|"
-            print(f"  K2 {family:11s} D={D} k={k:3d} B={B} {str(dtype)[6:]:8s}: max|dg|={eg:.3e} "
+            print(f"  K2 {family:11s} D={D} k={k:3d} B={B} {str(dtype)[6:]:8s} {kernel[10:]:8s}: max|dg|={eg:.3e} "
                   f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound {bound}), bits identical over two runs "
                   f"{'ok' if ok else 'FAIL'}")
             check(ok, f"K2 disagrees with its twin: {family} D={D} k={k} {dtype}")
     # time at the main path's shape: f32 multinomial k=10
-    B = 4096
+    n_pad, B = 65536, 4096
     head = torch.as_tensor(rng.standard_normal((n_pad, 784), dtype=np.float32), device=dev)
     k = 10
     w = torch.as_tensor(rng.standard_normal((k, 784), dtype=np.float32) / 28.0, device=dev)
@@ -218,7 +212,7 @@ def phase_k2(rng, dev):
     two_ms = cuda_ms(lambda: (xb @ w.T, gct @ xb), 50)
     # the block once, w, lp_extra / y / g_mem / wb in; g and corr out
     b = roofline(4 * (B * 784 + 2 * k * 784 + 4 * B * k + B), 4 * B * 784 * k, F32_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, K2_KERNELS)
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, hk.KERNEL_NAMES)
     check(dev_ms is not None, "the profile shows no K2 kernel: no device time measured")
     gbs = 4 * B * 784 / dev_ms / 1e6
     print(f"  K2 time at n_pad=65536 D=784 k=10 B=4096 f32 ({hk.device_plan(head, B, k)}): kernel {ms:.4f} ms a call "
@@ -226,8 +220,7 @@ def phase_k2(rng, dev):
           f"{EARLIER['k2_f32'][1]}), plain torch {plain_ms:.4f} ms, the two torch.matmul products {two_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs,
-            "earlier_ms": EARLIER["k2_f32"][0], "earlier_device_ms": EARLIER["k2_f32"][1]}
+            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs}
 
 
 # ---------------------------------------------------------------------------
@@ -589,10 +582,7 @@ def phase_tail(rng, dev, csr, seed):
     extra = {"max_abs_err": worst_err, "max_rel_err": worst_rel, "block_entries": c}
     return ({**k3, **extra, "probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"]},
             {**k4, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"],
-             "probe_shape_library_ms": k4_4["library_ms"],
-             "earlier_ms": EARLIER["k4"][0], "earlier_device_ms": EARLIER["k4"][1],
-             "earlier_probe_shape_ms": EARLIER["k4_probe_shape"][0],
-             "earlier_probe_shape_device_ms": EARLIER["k4_probe_shape"][1]})
+             "probe_shape_library_ms": k4_4["library_ms"]})
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +622,7 @@ def phase_k2_wide(rng, dev, seed):
                               torch.mm(gct, xb, out_dtype=torch.float32)), 20)
     # the bf16 block once, w and the (B, k) operands in, g and corr out
     b = roofline(2 * B * D + 4 * (2 * k * D + 4 * B * k + B), 4 * B * D * k, BF16_FLOPS)
-    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, K2_KERNELS)
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 10, hk.KERNEL_NAMES)
     check(dev_ms is not None, "the profile shows no K2 kernel: no device time measured")
     gbs = 2 * B * D / dev_ms / 1e6
     print(f"  K2 time there ({hk.device_plan(head, B, k)}): kernel {ms:.4f} ms a call ({dev_ms:.4f} ms on the device, "
@@ -640,8 +630,7 @@ def phase_k2_wide(rng, dev, seed):
           f"{EARLIER['k2_bf16'][0]} / {EARLIER['k2_bf16'][1]}), plain torch {plain_ms:.4f} ms, the two bf16 torch.mm "
           f"products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": max(eg, ec), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs,
-            "earlier_ms": EARLIER["k2_bf16"][0], "earlier_device_ms": EARLIER["k2_bf16"][1]}
+            "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs}
 
 
 # ---------------------------------------------------------------------------
@@ -692,6 +681,7 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
     warm-up fit; the busy share is the kernels' device time over the fit's
     wall, and the top kernels by device time with their calls."""
     import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.utils.device import self_device_us as dev_us
     from torch.profiler import ProfilerActivity, profile
 
     short = dict(kw, nlambda=2, maxit=4)
@@ -703,7 +693,6 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    dev_us = _self_device_us
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = [{"kernel": e.key[:60], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in

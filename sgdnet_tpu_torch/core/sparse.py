@@ -215,7 +215,8 @@ class PaddedCSR:
 
 
 #: a column of a block with more entries than this is summed by a whole
-#: warp of K4 (lanes stride over its segment) instead of one thread
+#: warp of K4 (lanes stride over its segment) instead of one thread; K4's
+#: wrapper hands the kernel this number with `heavy_cols`
 HEAVY_LEN = 16
 
 
@@ -242,7 +243,11 @@ class BlockCOO:
         heavy_cols  (n_blocks, H)        the columns with more than HEAVY_LEN
                                          entries, ascending, padded with -1
 
-    H = `max_heavy`, the most heavy columns of any block.  The tensors are
+    H = `max_heavy`, the most heavy columns of any block.  `col_seg` is
+    dense: 4 (p + 1) n_blocks bytes on the device (2.4 MB for p 47000 and 13
+    blocks), which grows with n_blocks x p and not with the tail's entries,
+    and K4 runs p x k threads a step over it; a tail much wider than its
+    entries a block would want a sparse map instead.  The tensors are
     contiguous and never reallocated or resized after construction, so the
     device address of each block's row of each view is computed once
     (`addr`, Python ints) and the kernels' wrappers index no tensor per

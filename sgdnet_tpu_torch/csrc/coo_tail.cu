@@ -28,10 +28,11 @@
 //     order (`rows_by_col`, `vals_by_col`: the walk reads them contiguously
 //     and only gc[row] is a gather), and `col_seg` maps every one of the p
 //     columns to its segment, empty for most.  One thread owns one (column,
-//     class) with at most HEAVY_LEN entries, sums them in order and writes
+//     class) with at most `heavy_len` entries (the caller's threshold, the
+//     one `heavy_cols` was built with), sums them in order and writes
 //     the column, zero where the block has no entry: the kernel writes all
 //     of corr, so the caller allocates it uninitialised.  Columns are Zipf:
-//     a column with more than HEAVY_LEN entries (listed in `heavy_cols`)
+//     a column with more than `heavy_len` entries (listed in `heavy_cols`)
 //     would set the whole launch's time if one thread walked it, so a warp
 //     owns it instead: lane l sums entries l, l + 32, ... in order and the
 //     32 lane sums meet in a fixed butterfly (`warp_sum_t`).  The heavy warps
@@ -58,8 +59,6 @@ __global__ void __launch_bounds__(TT) coo_forward(const int* __restrict__ row_pt
   out[t] = acc;
 }
 
-constexpr int HEAVY_LEN = 16;  // core/sparse.py HEAVY_LEN: the host lists the columns above it
-
 template <typename T>
 __device__ __forceinline__ T warp_sum_t(T v) {
 #pragma unroll
@@ -74,7 +73,7 @@ __global__ void __launch_bounds__(TT) coo_outer(const int* __restrict__ col_seg,
                                                 const int* __restrict__ rows_by_col,
                                                 const T* __restrict__ vals_by_col,
                                                 const int* __restrict__ heavy_cols, int n_heavy,
-                                                const T* __restrict__ gc, int k, long long p,
+                                                int heavy_len, const T* __restrict__ gc, int k, long long p,
                                                 int light_ctas, T* __restrict__ corr) {
   if ((int)blockIdx.x < light_ctas) {
     const long long t = blockIdx.x * (long long)TT + threadIdx.x;
@@ -82,7 +81,7 @@ __global__ void __launch_bounds__(TT) coo_outer(const int* __restrict__ col_seg,
     const long long j = t / k;
     const int c = (int)(t % k);
     const int s0 = col_seg[j], s1 = col_seg[j + 1];
-    if (s1 - s0 > HEAVY_LEN) return;  // a warp of the heavy CTAs writes it
+    if (s1 - s0 > heavy_len) return;  // a warp of the heavy CTAs writes it
     T acc = 0;
     for (int s = s0; s < s1; ++s) acc += vals_by_col[s] * gc[(long long)rows_by_col[s] * k + c];
     corr[c * p + j] = acc;
@@ -126,21 +125,22 @@ int sgd_coo_tail_forward(const int* row_ptr, const int* cols, const void* vals, 
 }
 
 // K4 on one block: col_seg (p + 1), rows_by_col / vals_by_col (E) and
-// heavy_cols (n_heavy, -1 past the block's own) are that block's rows of the
-// views, gc (B, k); corr (k, p) is written whole.
+// heavy_cols (n_heavy, -1 past the block's own: every column of the block
+// with more than heavy_len entries) are that block's rows of the views, gc
+// (B, k); corr (k, p) is written whole.
 int sgd_coo_tail_outer(const int* col_seg, const int* rows_by_col, const void* vals_by_col,
-                       const int* heavy_cols, int n_heavy, const void* gc, int dtype, int k, long long p,
-                       void* corr, void* stream) {
+                       const int* heavy_cols, int n_heavy, int heavy_len, const void* gc, int dtype, int k,
+                       long long p, void* corr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned light = grid_of(p * k);
   const unsigned grid = light + grid_of((long long)n_heavy * k * 32);
   if (dtype == 1)
     coo_outer<double><<<grid, TT, 0, s>>>(col_seg, rows_by_col, static_cast<const double*>(vals_by_col),
-                                          heavy_cols, n_heavy, static_cast<const double*>(gc), k, p,
+                                          heavy_cols, n_heavy, heavy_len, static_cast<const double*>(gc), k, p,
                                           (int)light, static_cast<double*>(corr));
   else
     coo_outer<float><<<grid, TT, 0, s>>>(col_seg, rows_by_col, static_cast<const float*>(vals_by_col),
-                                         heavy_cols, n_heavy, static_cast<const float*>(gc), k, p,
+                                         heavy_cols, n_heavy, heavy_len, static_cast<const float*>(gc), k, p,
                                          (int)light, static_cast<float*>(corr));
   return cudaGetLastError();
 }

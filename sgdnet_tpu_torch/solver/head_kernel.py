@@ -29,6 +29,10 @@ from sgdnet_tpu_torch.utils import build
 FAMILIES = ("gaussian", "binomial", "multinomial", "mgaussian")
 _FAMILY_CODE = {"gaussian": 0, "binomial": 1, "multinomial": 3, "mgaussian": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the device kernels one launch runs, by their names in a profile
+#: (csrc/head_step.cu: one of the first two, then `sum_partials` where the
+#: plan has more than one partial corr)
+KERNEL_NAMES = ("head_step_resident", "head_step_streamed", "sum_partials")
 #: class count limit (the JAX kernel pads k to at most 128 lanes)
 MAX_K = 128
 #: threads of a CTA, and the shared memory one CTA can use on Hopper
@@ -98,6 +102,11 @@ def resident_plans(B: int, D: int, k: int, dtype, max_ctas: int | None = None):
                     yield HeadPlan(True, bt, C, W, S, tpc, -(-n_tiles // tpc), single, smem)
 
 
+def _preference(k: int):
+    """The order `plan` prefers resident plans in (least first)."""
+    return lambda p: (-ctas_per_sm(p.smem, k), p.C, -p.bt, -p.S)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(B: int, D: int, k: int, dtype=torch.float32, max_ctas: int | None = None):
     """Launch parameters of K2 for a batch of B rows of a (n, D) head of
@@ -142,7 +151,7 @@ def plan(B: int, D: int, k: int, dtype=torch.float32, max_ctas: int | None = Non
         return None
     found = list(resident_plans(B, D, k, dtype, max_ctas))
     if found:
-        return min(found, key=lambda p: (-ctas_per_sm(p.smem, k), p.C, -p.bt, -p.S))
+        return min(found, key=_preference(k))
     bt = next(bt for bt in (32, 16, 8) if B % bt == 0)
     return HeadPlan(False, bt, 1, D, 1, 1, B // bt, False, 2 * 4 * bt * k)
 
@@ -187,7 +196,8 @@ def fused_head_step_reference(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, 
 
 #: (device, C, smem, dtype, k == 1) -> clusters of that shape the card holds at once
 _MAX_CLUSTERS: dict = {}
-#: (device, n_parts, k, D) -> the partial-corr scratch, kept between calls
+#: (device, stream, n_parts, k, D) -> the partial-corr scratch, kept between
+#: calls; one per stream, so calls of one shape on two streams share none
 _SCRATCH: dict = {}
 #: (device, dtype, B, D, k) -> the HeadPlan of that shape on that card
 _PLANS: dict = {}
@@ -235,37 +245,32 @@ def held_clusters(head: torch.Tensor, B: int, k: int, p: HeadPlan) -> int:
     return _MAX_CLUSTERS[key]
 
 
+def plans_on_card(head: torch.Tensor, B: int, k: int, p: HeadPlan) -> list:
+    """The resident plans whose persistent grid the card holds at once, so
+    that no cluster waits for another: p alone where its grid fits, else
+    every resident plan on a grid cut to the clusters of p's shape the card
+    holds (p's own (C, bt, S) is always among them)."""
+    held = held_clusters(head, B, k, p)
+    if p.n_parts <= held:
+        return [p]
+    return list(resident_plans(B, head.shape[1], k, head.dtype, max_ctas=held * p.C))
+
+
 def device_plan(head: torch.Tensor, B: int, k: int) -> HeadPlan:
-    """`plan` for this head on its card: the persistent grid is cut to the
-    clusters the card can hold at once, so no cluster waits for another."""
-    D = head.shape[1]
-    p = plan(B, D, k, head.dtype)
+    """`plan` for this head on its card: the preferred of `plans_on_card`."""
+    p = plan(B, head.shape[1], k, head.dtype)
     if p is None or not p.resident:
         return p
-    held = held_clusters(head, B, k, p)
-    return p if p.n_parts <= held else plan(B, D, k, head.dtype, max_ctas=held * p.C)
+    return min(plans_on_card(head, B, k, p), key=_preference(k))
 
 
-def fused_head_step_at(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str, plan_override=None):
-    """Fused lp / gradient / corr on rows [start, start+B) of the full
-    head; returns (g (B, k), corr (k, D)), f32 on the card.
-    `plan_override` (a HeadPlan) replaces the planned launch parameters: for
-    measuring other tile shapes on the card."""
-    if not head.is_cuda:
-        return fused_head_step_reference(head, start, w_h, lp_extra, yb, g_mem_b, wb, family)
+def head_step_with(p: HeadPlan, head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str):
+    """Launch K2 on a CUDA head with the launch parameters p (a HeadPlan
+    that fits this card: `device_plan`, or one of `plans_on_card`);
+    returns (g (B, k), corr (k, D)), f32."""
     n_pad, D = head.shape
     B, k = yb.shape
-    if head.dtype not in _DTYPE_CODE or family not in _FAMILY_CODE:
-        raise ValueError(f"head kernel takes f32/bf16 heads and {FAMILIES}; got {head.dtype}, {family}")
     dev = head.device
-    p = plan_override
-    if p is None:
-        key = (dev, head.dtype, B, D, k)
-        p = _PLANS.get(key)
-        if p is None:
-            if not supported(B, D, k, head.dtype, family):
-                raise ValueError(f"head kernel: unsupported shape B={B}, D={D}, k={k}")
-            p = _PLANS[key] = device_plan(head, B, k)
     if not (0 <= start and start + B <= n_pad):
         raise ValueError(f"head kernel: rows [{start}, {start + B}) outside the head's {n_pad} rows")
     if not head.is_contiguous():
@@ -277,20 +282,37 @@ def fused_head_step_at(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family:
     wt = _f32_operand(wb, (B,), dev)
     g = torch.empty((B, k), device=dev, dtype=torch.float32)
     corr = torch.empty((k, D), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if p.n_parts == 1:
         part = corr
     else:
-        key = (dev, p.n_parts, k, D)
+        key = (dev, stream, p.n_parts, k, D)
         part = _SCRATCH.get(key)
         if part is None:
             part = _SCRATCH[key] = torch.empty((p.n_parts, k, D), device=dev, dtype=torch.float32)
     ptrs = (w.data_ptr(), lpe.data_ptr(), y.data_ptr(), gm.data_ptr(), wt.data_ptr(),
             g.data_ptr(), part.data_ptr(), corr.data_ptr())
-    code = _launch(build.load_library(), head, start, B, k, p, ptrs, family,
-                   torch.cuda.current_stream(dev).cuda_stream)
+    code = _launch(build.load_library(), head, start, B, k, p, ptrs, family, stream)
     build.check(code, "fused head step")
     fused_head_step_at.launches += 1
     return g, corr
+
+
+def fused_head_step_at(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str):
+    """Fused lp / gradient / corr on rows [start, start+B) of the full
+    head; returns (g (B, k), corr (k, D)), f32 on the card."""
+    if not head.is_cuda:
+        return fused_head_step_reference(head, start, w_h, lp_extra, yb, g_mem_b, wb, family)
+    B, k = yb.shape
+    if head.dtype not in _DTYPE_CODE or family not in _FAMILY_CODE:
+        raise ValueError(f"head kernel takes f32/bf16 heads and {FAMILIES}; got {head.dtype}, {family}")
+    key = (head.device, head.dtype, B, head.shape[1], k)
+    p = _PLANS.get(key)
+    if p is None:
+        if not supported(B, head.shape[1], k, head.dtype, family):
+            raise ValueError(f"head kernel: unsupported shape B={B}, D={head.shape[1]}, k={k}")
+        p = _PLANS[key] = device_plan(head, B, k)
+    return head_step_with(p, head, start, w_h, lp_extra, yb, g_mem_b, wb, family)
 
 
 #: kernel launches since the last reset (the twin never counts)

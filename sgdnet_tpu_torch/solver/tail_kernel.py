@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from sgdnet_tpu_torch.core.sparse import HEAVY_LEN
 from sgdnet_tpu_torch.utils import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -78,8 +79,8 @@ def coo_tail_outer(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
     corr = torch.empty((k, bt.n_cols), dtype=gc.dtype, device=gc.device)
     col_seg, rows_by_col, vals_by_col, heavy_cols = bt.addr[blk][3:]
     code = build.load_library().sgd_coo_tail_outer(
-        col_seg, rows_by_col, vals_by_col, heavy_cols, bt.max_heavy, gc.data_ptr(), _DTYPE_CODE[gc.dtype], k,
-        bt.n_cols, corr.data_ptr(), torch.cuda.current_stream(gc.device).cuda_stream,
+        col_seg, rows_by_col, vals_by_col, heavy_cols, bt.max_heavy, HEAVY_LEN, gc.data_ptr(),
+        _DTYPE_CODE[gc.dtype], k, bt.n_cols, corr.data_ptr(), torch.cuda.current_stream(gc.device).cuda_stream,
     )
     build.check(code, "coo_tail_outer")
     coo_tail_outer.launches += 1

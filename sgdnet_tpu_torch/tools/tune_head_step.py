@@ -16,38 +16,26 @@ a call (torch.profiler), fastest on the device first.  It answers whether
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 
 import torch
 
 from sgdnet_tpu_torch.solver import head_kernel as hk
+from sgdnet_tpu_torch.utils.device import kernel_device_ms
 
 
-def _time(fn, starts, reps: int = 20) -> float:
-    for s in starts[:2]:
-        fn(s)
+def _time(fn, reps: int = 20) -> float:
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    for i in range(reps):
-        fn(starts[i % len(starts)])
+    for _ in range(reps):
+        fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def _device_ms(fn, starts, reps: int = 10):
-    """Device time a call: the K2 kernels' time per recorded launch in a
-    torch.profiler trace (None where the trace shows none)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(starts[i % len(starts)])
-        torch.cuda.synchronize()
-    us = lambda e: getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)  # noqa: E731
-    kern = [e for e in prof.key_averages() if us(e) > 0 and ("head_step_" in e.key or "sum_partials" in e.key)]
-    return sum(us(e) / e.count for e in kern) / 1e3 if kern else None
 
 
 def run_shape(dev, seed: int, n_pad: int, B: int, D: int, k: int, dtype, family: str) -> dict:
@@ -60,33 +48,32 @@ def run_shape(dev, seed: int, n_pad: int, B: int, D: int, k: int, dtype, family:
     y = y[:, :k].float().contiguous()
     gm = 0.1 * torch.randn((B, k), generator=gen, device=dev)
     wb = torch.ones((B,), device=dev)
-    starts = list(range(0, n_pad - B + 1, B))
+    last = n_pad - B
 
-    def call(plan):
-        return lambda s: hk.fused_head_step_at(head, s, w, lpe, y, gm, wb, family, plan_override=plan)
+    def at(plan, start):
+        return hk.head_step_with(plan, head, start, w, lpe, y, gm, wb, family)
+
+    def cycling(plan):
+        starts = itertools.cycle(range(0, last + 1, B))
+        return lambda: at(plan, next(starts))
 
     planned = hk.device_plan(head, B, k)
-    g0, c0 = call(planned)(starts[-1])
-    rows, todo = [], []
+    g0, c0 = at(planned, last)
+    rows = []
     for p in hk.resident_plans(B, D, k, dtype):
-        held = hk.held_clusters(head, B, k, p)
-        if p.n_parts > held:  # the grid cut to what the card holds of this shape
-            p = next((q for q in hk.resident_plans(B, D, k, dtype, max_ctas=held * p.C)
-                      if (q.C, q.bt, q.S) == (p.C, p.bt, p.S)), None)
-        if p is not None:
-            todo.append(p)
-    for p in todo:
-        g, c = call(p)(starts[-1])
+        # p's (C, bt, S) on a grid the card holds at once
+        p = next((q for q in hk.plans_on_card(head, B, k, p) if (q.C, q.bt, q.S) == (p.C, p.bt, p.S)))
+        g, c = at(p, last)
         torch.cuda.synchronize()
         err = float((c - c0).abs().max()) / max(float(c0.abs().max()), 1e-30)
         if err > 1e-4 or float((g - g0).abs().max()) > 1e-5:
             raise RuntimeError(f"K2 at {p} disagrees with the planned launch: corr {err:.3e}")
         rows.append({"C": p.C, "bt": p.bt, "S": p.S, "tpc": p.tpc, "n_parts": p.n_parts, "smem": p.smem,
-                     "ctas_per_sm": hk.ctas_per_sm(p.smem, k), "ms": _time(call(p), starts),
-                     "device_ms": _device_ms(call(p), starts), "rel_err_vs_planned": err})
+                     "ctas_per_sm": hk.ctas_per_sm(p.smem, k), "ms": _time(cycling(p)),
+                     "device_ms": kernel_device_ms(cycling(p), 10, hk.KERNEL_NAMES), "rel_err_vs_planned": err})
     rows.sort(key=lambda r: r["device_ms"] or r["ms"])
     return {"shape": {"n_pad": n_pad, "B": B, "D": D, "k": k, "dtype": str(dtype)[6:]},
-            "planned": planned._asdict(), "planned_ms": _time(call(planned), starts),
+            "planned": planned._asdict(), "planned_ms": _time(cycling(planned)),
             "block_bytes": B * D * dtype.itemsize, "candidates": rows}
 
 

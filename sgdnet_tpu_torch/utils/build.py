@@ -44,7 +44,7 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "sgd_coo_tail_forward": ([_P, _P, _P, _P, _I, _I, _I, _LL, _P, _P], ctypes.c_int),
-    "sgd_coo_tail_outer": ([_P, _P, _P, _P, _I, _P, _I, _I, _LL, _P, _P], ctypes.c_int),
+    "sgd_coo_tail_outer": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _LL, _P, _P], ctypes.c_int),
     "sgd_epoch_probe": ([_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P], ctypes.c_int),
     "sgd_block_colsum": ([_P, _LL, _I, _I, _I, _P, _P, _P], ctypes.c_int),
     "sgd_block_colsum_pipelined": ([_P, _LL, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
