@@ -14,11 +14,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      streamed tile kernel, by its name in a profile), with identical bits
      over two runs; its time, device time and GB/s of head beside the two
      torch.matmul products;
-  4. K1 (whole-epoch kernel) against its twin, one epoch on the bundled
-     datasets and a seeded poisson set;
-  5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, held against
-     the plain step path on the card over the first quarter of the path,
-     predict/score, and a golden path;
+  4. K1 (the whole-epoch kernel) against its twins: one epoch on the
+     bundled datasets and a seeded poisson set; then every variant (one
+     warp at p 11 and 20, many warps with column groups, 16 lanes a row,
+     and l2) on the
+     five families and three penalties, four epochs a launch whose orders
+     repeat a block across each epoch boundary, and a stop inside a chunk,
+     against `epochs_reference` (the epoch count and stop flag, 1e-4 x
+     scale, pad lanes zero, identical bits over two runs); its time a
+     step, an epoch and the refresh (CUDA events and profiler device
+     time) and an epoch inside a 16-epoch launch, beside the earlier
+     design's;
+  5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, with its wall,
+     epochs, K1 launches (chunks), host syncs and device busy share (as
+     tools/profile_slice_a.py measures them), held against the plain step
+     path on the card over the first quarter of the path, predict/score,
+     and a golden path;
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
      wall times and samples/s;
@@ -78,6 +89,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: beside the new times only: the `kernels` line holds what this run measured
 EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
            "k4_probe_shape": (0.0942, 0.0307)}
+#: the same card model and limit before K1 was redesigned (its earlier
+#: persistent 512-thread CTA an epoch, operands from L2, a second launch
+#: for the refresh): an abalone epoch in ms a call and ms on the device, µs
+#: a step of device time, and slice A's wall in s, epochs and K1 launches
+EARLIER_K1 = {"epoch": (0.8248, 0.8108), "step_us": 6.19, "slice_a": (2.072, 1268, 1268)}
 #: H100 SXM peaks (NVIDIA's data sheet): device memory rate, FP32 outside
 #: the tensor cores, dense bf16 tensor cores
 HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -234,6 +250,10 @@ def _standardize(x):
     return (x - x.mean(0)) / sd
 
 
+def _same_state(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 def _k1_case(rng, dev, name, x, y, family_name, alpha, grouped=False, offs=None, pf=None):
     from sgdnet_tpu_torch.families import get_family
     from sgdnet_tpu_torch.penalties import select_penalty
@@ -278,19 +298,120 @@ def _k1_case(rng, dev, name, x, y, family_name, alpha, grouped=False, offs=None,
     starts = torch.as_tensor(rng.permutation(T) * B, dtype=torch.int32, device=dev)
     args = (data, ps, starts, B, fam, pen, gamma, alpha * lam, (1 - alpha) * lam, float(n))
     out = ek.saga_epoch(*args)
+    same = _same_state(out, ek.saga_epoch(*args))
     ref = ek.epoch_reference(*args)
     dims = (n, p, k, B)
     torch.cuda.synchronize()
     rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(out, ref))
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     pads_zero = float(out.w[k:].abs().max() if k < ek.KP else 0.0) == 0.0 and float(out.w[:, p:].abs().max()) == 0.0
-    ok = rel <= 1e-4 and pads_zero
+    ok = rel <= 1e-4 and pads_zero and same
     extras = "+offs" if offs is not None else ""
     extras += "+pf" if pf is not None else ""
-    print(f"  K1 {name:8s} {family_name:11s} {pen.name:11s}{extras:8s} n_pad={n_pad} P={P} k={k}: "
-          f"rel err {rel:.3e} (bound 1e-4), pads zero: {pads_zero} {'ok' if ok else 'FAIL'}")
+    print(f"  K1 {name:8s} {family_name:11s} {pen.name:11s}{extras:8s} n_pad={n_pad} P={P} k={k} "
+          f"({ek.plan(p, k, B, offs is not None).variant}): rel err {rel:.3e} (bound 1e-4), pads zero: {pads_zero}, "
+          f"bits identical over two runs: {same} {'ok' if ok else 'FAIL'}")
     check(ok, f"K1 disagrees with its twin on {name}")
     return err, args, dims
+
+
+#: K1's variants and shapes that take them (n, p, B): one warp (slice A's
+#: shape, and p 20), many warps with column groups, 16 lanes a row, and l2
+#: (no ring fits beside the state at B 2048)
+K1_SHAPES = {"ring_warp": (500, 11, 32), "ring_warp20": (600, 20, 32), "ring_groups": (1000, 9, 256),
+             "ring_lanes": (300, 200, 32), "l2": (4096, 9, 2048)}
+K1_FAMILIES = (("gaussian", 1), ("binomial", 1), ("poisson", 1), ("multinomial", 3), ("mgaussian", 2))
+K1_PENALTIES = ((0.0, "ungrouped"), (0.7, "ungrouped"), (0.7, "grouped"))
+
+
+def _k1_problem(rng, dev, family, k, n, p, B, E=4):
+    """A seeded problem with offsets and penalty factors, a nonzero state,
+    and E epochs of block orders in which each epoch's last block is the
+    next epoch's first."""
+    from sgdnet_tpu_torch.families import get_family
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+    from sgdnet_tpu_torch.solver.saga import SagaState
+
+    x = rng.standard_normal((n, p))
+    y = {"binomial": lambda: (rng.random((n, 1)) < 0.4).astype(float),
+         "poisson": lambda: rng.poisson(1.5, (n, 1)).astype(float),
+         "multinomial": lambda: np.eye(3)[rng.integers(0, 3, n)]}.get(family, lambda: rng.standard_normal((n, k)))()
+    n_pad = -(-n // B) * B
+    pad = lambda a: torch.as_tensor(  # noqa: E731
+        np.concatenate([a, np.zeros((n_pad - n,) + a.shape[1:])]).astype(np.float32), device=dev)
+    fam = get_family(family, n_classes=k, smoothness=8.0)
+    fam.n_classes = k
+    data = ek.pad_data(pad(x), pad(y), pad(rng.uniform(0.5, 1.5, n)), pad(0.2 * rng.standard_normal((n, k))),
+                       torch.as_tensor(rng.uniform(0, 2, p).astype(np.float32), device=dev))
+    st0 = SagaState(*(torch.as_tensor((0.1 * rng.standard_normal(s)).astype(np.float32), device=dev)
+                      for s in [(k, p), (k,), (n_pad, k), (k, p), (k,)]))
+    T = n_pad // B
+    orders = np.stack([rng.permutation(T) for _ in range(E)])
+    for e in range(E - 1):
+        first = int(np.nonzero(orders[e + 1] == orders[e, -1])[0][0])
+        orders[e + 1, [0, first]] = orders[e + 1, [first, 0]]
+    return data, ek.pad_state(st0, p), fam, torch.as_tensor(orders * B, dtype=torch.int32, device=dev)
+
+
+def _k1_chunk_check(data, ps, orders, B, fam, pen, run):
+    """saga_epochs against epochs_reference: (max relative error, max abs
+    error, epochs run, twin's epochs run, stop flags equal, bits identical
+    over two launches, pad lanes zero)."""
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+
+    out, stats = ek.saga_epochs(data, ps, orders, B, fam, pen, **run)
+    again, stats2 = ek.saga_epochs(data, ps, orders, B, fam, pen, **run)
+    ref, rstats = ek.epochs_reference(data, ps, orders, B, fam, pen, **run)
+    torch.cuda.synchronize()
+    rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(out, ref))
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    k, p = data.k, data.p
+    pads = float(out.w[:, p:].abs().max()) == 0.0 and float(out.w[k:].abs().max() if k < ek.KP else 0.0) == 0.0
+    same = _same_state(out, again) and torch.equal(stats, stats2)
+    st, rst = stats.tolist(), rstats.tolist()
+    return rel, err, int(st[0]), int(rst[0]), st[3] == rst[3], same, pads
+
+
+def _k1_variants(rng, dev) -> dict:
+    """Every variant on the five families and three penalties (four epochs
+    a launch, refresh every second, the wrap orders), and a stop inside a
+    chunk on each variant."""
+    from sgdnet_tpu_torch.penalties import select_penalty
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+
+    worst_rel, worst_err, cases = 0.0, 0.0, 0
+    for shape, (n, p, B) in K1_SHAPES.items():
+        pl = ek.plan(p, 3, B, True)
+        check(pl.variant == shape.split("_")[0], f"K1 shape {shape} plans the {pl.variant} variant")
+        shape_rel = 0.0
+        for family, k in K1_FAMILIES:
+            for alpha, tm in K1_PENALTIES:
+                data, ps, fam, orders = _k1_problem(rng, dev, family, k, n, p, B)
+                pen = select_penalty(alpha, family, tm)
+                run = dict(gamma=0.01, l1=0.02 * alpha, l2=0.02 * (1 - alpha), w_total=float(n), it0=0,
+                           t_conv=0.0, refresh_every=2)
+                rel, err, ran, ran_ref, stop_same, same, pads = _k1_chunk_check(data, ps, orders, B, fam, pen, run)
+                ok = rel <= 1e-4 and ran == ran_ref == 4 and stop_same and same and pads
+                check(ok, f"K1 {shape} {family} {pen.name}: rel {rel:.3e}, epochs {ran} vs {ran_ref}, "
+                          f"stop flags equal {stop_same}, bits identical {same}, pads zero {pads}")
+                shape_rel, worst_err, cases = max(shape_rel, rel), max(worst_err, err), cases + 1
+        # a tolerance that stops inside the chunk: the twin's third epoch's relative change
+        data, ps, fam, orders = _k1_problem(rng, dev, "gaussian", 1, n, p, B, E=8)
+        pen = select_penalty(0.5, "gaussian", "ungrouped")
+        run = dict(gamma=0.01, l1=0.01, l2=0.01, w_total=float(n), it0=0, refresh_every=1)
+        cut, _ = ek.epochs_reference(data, ps, orders[:2], B, fam, pen, **run)
+        _, st3 = ek.epochs_reference(data, cut, orders[2:3], B, fam, pen, **run)
+        run["t_conv"] = float(st3[1] / st3[2]) * 1.0001
+        rel, err, ran, ran_ref, stop_same, same, pads = _k1_chunk_check(data, ps, orders, B, fam, pen, run)
+        check(rel <= 1e-4 and ran == ran_ref < 8 and stop_same and same and pads,
+              f"K1 {shape}: the stop inside a chunk: epochs {ran} vs {ran_ref}, rel {rel:.3e}")
+        worst_rel = max(worst_rel, shape_rel, rel)
+        print(f"  K1 variant {pl.variant:4s} ({shape}: n {n}, p {p}, B {B}; {pl.threads} threads, {pl.lanes} lanes a "
+              f"row, {pl.groups} column groups, {pl.stages} stages): 15 families x penalties, 4 epochs a launch with a "
+              f"block repeated across each epoch boundary: worst rel err {shape_rel:.3e} (bound 1e-4), epochs and "
+              f"stop flags as the twin's, pads zero, bits identical over two runs; stop inside a chunk after "
+              f"{ran} of 8 epochs as the twin")
+    return {"max_rel_err": worst_rel, "max_abs_err": worst_err, "cases": cases + len(K1_SHAPES)}
 
 
 def phase_k1(rng, dev):
@@ -317,19 +438,53 @@ def phase_k1(rng, dev):
     yp = rng.poisson(np.exp(0.3 + xp @ (0.3 * rng.standard_normal(12)))).astype(np.float64)
     err, _, _ = _k1_case(rng, dev, "poisson", xp, yp, "poisson", 0.5)
     worst = max(worst, err)
+    variants = _k1_variants(rng, dev)
+    worst = max(worst, variants["max_abs_err"])
+
+    # times on abalone: an epoch as one launch, with and without the
+    # refresh; 16 epochs in one launch (no stop: t_conv 0) with the refresh
+    # every epoch and never, whose difference over 16 is the refresh's time
+    # (a difference of device-bound launches: one-epoch calls are host-bound
+    # enough that theirs is noise); a step is an epoch without it over T
+    T = -(-n // B)
+    data, ps = timing_args[0], timing_args[1]
+    no_refresh = lambda: ek.saga_epoch(*timing_args, refresh=False)  # noqa: E731
+    orders16 = torch.stack([timing_args[2][torch.randperm(T, generator=torch.Generator().manual_seed(e))]
+                            for e in range(16)])
+    chunk = lambda every=1: ek.saga_epochs(data, ps, orders16, *timing_args[3:], refresh_every=every)  # noqa: E731
+    names = ("saga_epochs_kernel",)
     ms = cuda_ms(lambda: ek.saga_epoch(*timing_args), 50)
+    ms_nr = cuda_ms(no_refresh, 50)
+    ms_chunk, ms_chunk_nr = cuda_ms(chunk, 10) / 16, cuda_ms(lambda: chunk(0), 10) / 16
     plain_ms = cuda_ms(lambda: ek.epoch_reference(*timing_args), 5)
+    dev_ms = device_ms(lambda: ek.saga_epoch(*timing_args), 20, names)
+    dev_nr = device_ms(no_refresh, 20, names)
+    dev_chunk, dev_chunk_nr = device_ms(chunk, 5, names), device_ms(lambda: chunk(0), 5, names)
+    check(None not in (dev_ms, dev_nr, dev_chunk, dev_chunk_nr),
+          "the profile shows no K1 kernel: no device time measured")
+    dev_chunk, dev_chunk_nr = dev_chunk / 16, dev_chunk_nr / 16
+    refresh_ms, refresh_dev = ms_chunk - ms_chunk_nr, dev_chunk - dev_chunk_nr
+    step_us, step_dev_us = ms_nr / T * 1e3, dev_nr / T * 1e3
     # the real data and state once in (x, y, weights, g_mem, w, g_sum, the
     # block order), the state once out; two products a step over the epoch.
-    # Its time is set by the 131 dependent steps, not by this roofline
-    T = -(-n // B)
+    # Its time is set by the T dependent steps, not by this roofline
     b = roofline(4 * (n * p + 3 * n * k + n + 2 * k * p + T) + 4 * (n * k + 2 * k * p + 2 * k), 4 * n * p * k,
                  F32_FLOPS)
-    dev_ms = device_ms(lambda: ek.saga_epoch(*timing_args), 20, ("saga_epoch", "gsum_refresh"))
-    print(f"  K1 time, one abalone epoch (n_pad=4192, P=128, B=32, 131 steps): kernel {ms:.4f} ms a call "
-          f"({_fmt(dev_ms)} on the device), plain torch {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
-          f"({b['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "device_ms": dev_ms}
+    pl = ek.plan(p, k, B)
+    print(f"  K1 time, one abalone epoch (n_pad=4192, p=9, B=32, {T} steps; the {pl.variant} variant, {pl.threads} "
+          f"threads, {pl.stages} stages): {ms:.4f} ms a call ({dev_ms:.4f} ms on the device; earlier: "
+          f"{EARLIER_K1['epoch'][0]} / {EARLIER_K1['epoch'][1]}), plain torch {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+    print(f"  K1 a step: {step_us:.3f} us a call, {step_dev_us:.3f} us of device time (earlier: "
+          f"{EARLIER_K1['step_us']} us); an epoch inside a 16-epoch launch: {ms_chunk:.4f} ms a call, "
+          f"{dev_chunk:.4f} ms of device time, and without the refresh {ms_chunk_nr:.4f} / {dev_chunk_nr:.4f} ms: "
+          f"the refresh {refresh_ms * 1e3:.3f} us a call, {refresh_dev * 1e3:.3f} us of device time")
+    return {"max_abs_err": worst, "max_rel_err": variants["max_rel_err"], "variant_cases": variants["cases"],
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "device_ms": dev_ms,
+            "no_refresh_ms": ms_nr, "no_refresh_device_ms": dev_nr, "refresh_ms": refresh_ms,
+            "refresh_device_ms": refresh_dev, "step_us": step_us, "step_device_us": step_dev_us,
+            "chunk16_ms_per_epoch": ms_chunk, "chunk16_device_ms_per_epoch": dev_chunk,
+            "earlier_ms": EARLIER_K1["epoch"][0], "earlier_device_ms": EARLIER_K1["epoch"][1]}
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +509,22 @@ def run_slice_a(dev):
 def check_slice_a(f, wall, launches, dev, card):
     import sgdnet_tpu_torch as st
 
+    from sgdnet_tpu_torch.tools import profile_slice_a
+
     x, y = st.load_abalone()
+    chunks = f.stats["epoch_chunks"]
     print(f"  slice A (abalone gaussian alpha=0.8, 100 lambdas, K1): {wall:.3f} s wall, {f.npasses} epochs, "
-          f"{launches} K1 launches, epoch_kernel={f.stats['epoch_kernel']} [{card}]")
+          f"{launches} K1 launches ({chunks} chunks), epoch_kernel={f.stats['epoch_kernel']} (earlier: "
+          f"{EARLIER_K1['slice_a'][0]} s, {EARLIER_K1['slice_a'][1]} epochs, {EARLIER_K1['slice_a'][2]} launches) "
+          f"[{card}]")
     check(f.stats["epoch_kernel"] is True, "slice A did not run through K1")
-    check(launches > 0, "slice A launched K1 no time")
+    check(0 < launches == chunks < f.npasses, "slice A: K1 launches are not its chunks, fewer than its epochs")
+    prof = profile_slice_a.run(dev, reps=3)
+    check(prof["epoch_kernel"] is True and prof["busy_share"] is not None, "slice A's profile saw no K1 device time")
+    print(f"  slice A again ({profile_slice_a.__name__}): median wall {prof['wall_s']:.3f} s of "
+          f"{[round(w, 3) for w in prof['walls_s']]}, {prof['host_syncs']} host syncs torch reports, device busy "
+          f"{prof['device_s']:.3f} s = {prof['busy_share']:.3f} of the wall; top kernels "
+          f"{[(t['kernel'][:40], t['calls'], round(t['device_ms'], 2)) for t in prof['top'][:3]]} [{card}]")
     dr = f.dev_ratio
     check(np.isfinite(dr).all() and np.isfinite(f.beta).all(), "slice A: non-finite path")
     check(np.all(np.diff(dr) >= -1e-6), f"slice A: dev_ratio decreases along the path: {np.diff(dr).min()}")
@@ -387,8 +553,9 @@ def check_slice_a(f, wall, launches, dev, card):
     rel_g = _rel_diff(fg.beta[:, 0, :], g["a1.0_s1_beta"])
     print(f"  slice A golden path (alpha=1, f32 through K1): max|dbeta|/scale = {rel_g:.3e} (bound 2e-3)")
     check(rel_g <= 2e-3, "slice A: K1 fit misses the golden path")
-    return {"wall_s": wall, "epochs": f.npasses, "plain_lambdas": head_n, "plain_wall_s": wall_plain,
-            "plain_epochs": f_plain.npasses}
+    return {"wall_s": wall, "epochs": f.npasses, "chunks": chunks, "plain_lambdas": head_n,
+            "plain_wall_s": wall_plain, "plain_epochs": f_plain.npasses, "profile": prof,
+            "earlier_wall_s": EARLIER_K1["slice_a"][0]}
 
 
 def _multinomial_data(seed: int, n=65536, p=784, k=10):
@@ -644,7 +811,7 @@ def _wrappers() -> dict:
     from sgdnet_tpu_torch.solver import tail_kernel as tk
     from sgdnet_tpu_torch.tools import probe_kernels as pk
 
-    return {"K1": ek.saga_epoch, "K2": hk.fused_head_step_at, "K3": tk.coo_tail_forward, "K4": tk.coo_tail_outer,
+    return {"K1": ek.saga_epochs, "K2": hk.fused_head_step_at, "K3": tk.coo_tail_forward, "K4": tk.coo_tail_outer,
             "P1": pk.epoch_probe, "P2": pk.block_colsum, "P3": pk.block_colsum_pipelined}
 
 
@@ -784,12 +951,12 @@ def phase_p1(rng, dev, k1):
     # x, the used lanes of y / wt / g_mem, w, g_sum and the starts once in;
     # g_mem's lane, w and g_sum once out; two products a step
     b = roofline(4 * (N * P + 3 * N + 2 * P + T) + 4 * (N + 2 * P), 4 * N * P, F32_FLOPS)
-    k1_ns = None if k1["device_ms"] is None else k1["device_ms"] / 131 * 1e6
+    k1_ns = k1["step_device_us"] * 1e3
     p1_ns = None if dev_ms is None else dev_ms / T * 1e6
-    print(f"  P1 time an epoch ({T} steps): kernel {ms:.4f} ms a call ({_fmt(dev_ms)} on the device, "
-          f"{p1_ns if p1_ns is None else round(p1_ns, 1)} ns a step), twin {plain_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.6f} ms ({b['bound_by']}); K1 on abalone: "
-          f"{k1_ns if k1_ns is None else round(k1_ns, 1)} ns a step of device time (131 steps)")
+    print(f"  P1 time an epoch ({T} steps; K1's earlier design: one CTA, operands from L2): kernel "
+          f"{ms:.4f} ms a call ({_fmt(dev_ms)} on the device, {p1_ns if p1_ns is None else round(p1_ns, 1)} ns a "
+          f"step), twin {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); K1 on abalone now: "
+          f"{k1_ns:.1f} ns a step of device time (131 steps, the refresh apart)")
     return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
             "device_ms": dev_ms, "ns_per_step_device": p1_ns, "k1_ns_per_step_device": k1_ns}
 
@@ -1044,7 +1211,8 @@ def main(argv=None) -> int:
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
     probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
-        {"name": "saga_epoch (K1)", "route": "cuda", "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
+        {"name": "saga_epochs (K1), one abalone epoch", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
          "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", "A"), **k1},
         {"name": "fused_head_step_at (K2), f32 D=784 k=10 B=4096", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",

@@ -59,7 +59,8 @@ class SgdnetFit:
     final_state: object = field(default=None, repr=False)
     #: wall_time_s, epochs, nnz, nnz_per_s, layout, device, which kernels
     #: ran (epoch_kernel = K1, head_kernel = K2, tail_kernel = the BlockCOO
-    #: tail ops K3 / K4), and layout_plan (the planner's LayoutPlan as a
+    #: tail ops K3 / K4), epoch_chunks (K1's launches, a chunk of epochs and
+    #: one host sync each; 0 off K1), and layout_plan (the planner's LayoutPlan as a
     #: dict under hybrid_max_head="auto" on scipy input, else None)
     stats: dict | None = field(default=None, repr=False)
 
@@ -669,6 +670,8 @@ def fit(
         "layout": _layout_stats(x),
         "device": str(dev),
         "epoch_kernel": config.use_epoch_kernel,
+        # K1 launches over the path (each a chunk of epochs, with one sync)
+        "epoch_chunks": int(results.n_chunks.sum()),
         "head_kernel": not config.use_epoch_kernel and uses_head_kernel(x, fam, config),
         "tail_kernel": isinstance(x, HybridCSR) and x.blk_tail is not None and use_tail_kernel,
         "layout_plan": None if layout_plan is None else asdict(layout_plan),

@@ -9,8 +9,10 @@ applies the L2 decay and the prox densely once per step:
 The JAX package runs the whole path as one compiled program; here the
 path is a host loop over lambdas and epochs with one scalar sync per epoch
 for the convergence test.  Two hand-written kernels replace the plain step
-where their gates allow: K1 (solver/epoch_kernel.py) runs a whole epoch
-per launch, K2 (solver/head_kernel.py) fuses the dense part of a step.
+where their gates allow: K1 (solver/epoch_kernel.py) runs a chunk of a
+lambda attempt's epochs per launch, with the convergence test on the card
+(one sync a chunk); K2 (solver/head_kernel.py) fuses the dense part of a
+step.
 
 The design matrix is dense, a PaddedCSR (the 'densify' or 'gather'
 `sparse_mode`) or a HybridCSR (core/sparse.py): a dense head driven by
@@ -40,6 +42,7 @@ import torch
 from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
 from sgdnet_tpu_torch.families.families import Family
 from sgdnet_tpu_torch.penalties.penalties import Penalty
+from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver import head_kernel, tail_kernel
 
 
@@ -401,6 +404,8 @@ class PathResults(NamedTuple):
     clamp_gap: np.ndarray  # (n_lambda,) exact-vs-solver loss gap (poisson; else 0)
     #: relative change max|dw|/max|w| at the last epoch (inf on divergence)
     final_change: np.ndarray  # (n_lambda,)
+    #: K1 launches (chunks of epochs) over all attempts; 0 off the K1 path
+    n_chunks: np.ndarray  # (n_lambda,) int32
 
 
 def default_order_fn(seed: int, n: int):
@@ -480,57 +485,77 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         # small-problem path: state rides in the kernel's padded layout
         # across the whole path; pads stay zero, so the convergence check
         # below works unchanged on the padded tiles
-        from sgdnet_tpu_torch.solver import epoch_kernel as ek
-
-        epoch_fn = ek.build_epoch(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf)
+        epochs_fn = ek.build_epochs(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf)
         state0 = ek.pad_state(state0, p)
 
         def unpad(s):
             return ek.unpad_state(s, k, p)
-
-        def intercept_of(s):
-            return s.ivec[0]
     else:
         epoch_fn = _make_epoch(x, y, weights, w_total, family, penalty, config, offs=offs, pf=pf, box=box, xc=xc)
 
         def unpad(s):
             return s
 
-        def intercept_of(s):
-            return s.intercept
-
     max_iter = config.max_iter
 
-    def fit_one(state, gamma, l1, l2, lam_idx, attempt, t_conv):
-        # t_conv: the relative-change criterion is blind to the step size,
-        # so retries pass tol scaled by their step multiplier
+    def _loss(st):
+        s = unpad(st)
+        return float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, xc=xc,
+                                   kernels=config.use_tail_kernel)) / w_total
+
+    n_chunks = [0]
+
+    def fit_one_chunks(state, gamma, l1, l2, lam_idx, attempt, t_conv):
+        # K1: the attempt's epochs in chunks of one launch each, growing
+        # from CHUNK_FIRST to CHUNK_CAP epochs (one epoch a chunk under
+        # debug, for the loss trace); the kernel stops at the epoch where
+        # the rule below would, and one sync a chunk reads its statistics
+        losses = np.full((max_iter if config.debug else 0,), np.nan, dt)
+        ps = ek.PadState(*(t.clone() for t in state))  # the attempt's own copy, updated in place
+
+        def draw(it0, n):
+            return torch.stack([torch.as_tensor(order_fn(lam_idx, attempt, it0 + e)) for e in range(n)])
+
+        it, done, rel = 0, False, dt(0.0)
+        size = 1 if config.debug else ek.CHUNK_FIRST
+        orders = draw(0, min(size, max_iter))
+        while not done and it < max_iter:
+            n = orders.shape[0]
+            ps, stats = epochs_fn(ps, orders, gamma, l1, l2, it0=it, t_conv=float(t_conv), inplace=True)
+            # the next chunk's orders are drawn while this one runs (used
+            # only if it runs to its end)
+            size = min(2 * size, ek.CHUNK_CAP) if not config.debug else 1
+            if it + n < max_iter:
+                orders = draw(it + n, min(size, max_iter - it - n))
+            ran, max_change, max_size, finite = stats.tolist()
+            done, rel = ek.stop_rule(max_change, max_size, finite == 1.0, t_conv, dt)
+            if config.debug:
+                losses[it] = _loss(ps)
+            it += int(ran)
+            n_chunks[0] += 1
+        return ps, it, losses, rel
+
+    def fit_one_epochs(state, gamma, l1, l2, lam_idx, attempt, t_conv):
         losses = np.full((max_iter if config.debug else 0,), np.nan, dt)
         it, done, rel = 0, False, dt(0.0)
         w_prev = state.w
         while not done and it < max_iter:
             state = epoch_fn(state, order_fn(lam_idx, attempt, it), gamma, l1, l2, it=it)
-            stats = torch.stack([
-                torch.max(torch.abs(state.w - w_prev)),
-                torch.max(torch.abs(state.w)),
-                torch.all(torch.isfinite(intercept_of(state))).to(state.w.dtype),
-            ]).tolist()
-            max_change, max_size = dt(stats[0]), dt(stats[1])
+            max_change, max_size, finite = ek.epoch_stats(state.w, w_prev, state.intercept)
             # divergence guard: a non-finite epoch is terminal; report it as
             # not converged (final_change = inf), never as converged
-            finite = bool(np.isfinite(max_size) and np.isfinite(max_change) and stats[2] == 1.0)
-            all_zero = max_size == 0.0 and max_change == 0.0
-            no_change = finite and max_size != 0.0 and max_change <= t_conv * max_size
-            done = all_zero or no_change or not finite
-            if finite and max_size > 0.0:
-                rel = max_change / max(max_size, dt(1e-30))
-            else:
-                rel = dt(0.0) if finite else dt(np.inf)
+            done, rel = ek.stop_rule(max_change, max_size, finite == 1.0, t_conv, dt)
             if config.debug:
-                s = unpad(state)
-                losses[it] = float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, xc=xc,
-                                                  kernels=config.use_tail_kernel)) / w_total
+                losses[it] = _loss(state)
             w_prev = state.w
             it += 1
+        return state, it, losses, rel
+
+    def fit_one(state, gamma, l1, l2, lam_idx, attempt, t_conv):
+        # t_conv: the relative-change criterion is blind to the step size,
+        # so retries pass tol scaled by their step multiplier
+        run = fit_one_chunks if config.use_epoch_kernel else fit_one_epochs
+        state, it, losses, rel = run(state, gamma, l1, l2, lam_idx, attempt, t_conv)
         if np.isinf(rel):  # a divergence exit must read as NOT converged
             it = max_iter
         return state, it, losses, rel
@@ -594,6 +619,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     outs = {f: [] for f in PathResults._fields}
     for i in range(n_lambda):
         gamma, l1, l2 = gammas[i], l1s[i], l2s[i]
+        chunks_before = n_chunks[0]
         if config.step_backoff:
             best, bk, att_it = fit_one_robust(state, gamma, l1, l2, i, bk)
             state, it, losses, rel, code = best["state"], best["it"], best["losses"], best["rel"], best["code"]
@@ -620,6 +646,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         outs["losses"].append(losses)
         outs["clamp_gap"].append(gap)
         outs["final_change"].append(float(rel))
+        outs["n_chunks"].append(n_chunks[0] - chunks_before)
         n_iter += att_it
 
     results = PathResults(
@@ -631,5 +658,6 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         losses=np.stack(outs["losses"]).astype(dt),
         clamp_gap=np.asarray(outs["clamp_gap"], dt),
         final_change=np.asarray(outs["final_change"], dt),
+        n_chunks=np.asarray(outs["n_chunks"], np.int32),
     )
     return unpad(state), n_iter, results

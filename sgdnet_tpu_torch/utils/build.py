@@ -33,9 +33,9 @@ NVCC_FLAGS = (
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sgd_epoch": (
-        [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    "sgd_epochs": (
+        [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+         _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _I, _P],
         ctypes.c_int,
     ),
     "sgd_head_step": (

@@ -8,7 +8,10 @@ machine that has only torch (tests/conftest.py needs jax, hence
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K2 as tests/test_pallas.py (f32: g atol 1e-5, corr atol 2e-3;
-bf16: g 3e-2, corr 2e-2 x max|corr|) and bit-identical across two runs; K1 one epoch at 1e-5 x scale; K3 / K4
+bf16: g 3e-2, corr 2e-2 x max|corr|) and bit-identical across two runs; K1
+one epoch at 1e-5 x scale, a chunk of epochs (every variant) at 1e-4 x
+scale with the twin's epoch count and stop flag, bit-identical across two
+runs; K3 / K4
 at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
 across two runs; fits through a kernel vs the plain step path on the card
 at 1e-4 x scale; the probes P1 at 1e-5 x max and bit-identical across two
@@ -115,15 +118,18 @@ def test_head_kernel_rejects_what_it_does_not_take(dev):
         hk.fused_head_step_at(head.double(), 0, w, args[1], args[2], args[3], args[4], "gaussian")
 
 
-@pytest.mark.parametrize("family,alpha,grouped", [
-    ("gaussian", 0.8, False), ("binomial", 0.0, False), ("poisson", 0.5, False),
-    ("multinomial", 0.9, True), ("mgaussian", 0.5, False),
-])
-def test_epoch_kernel_matches_twin(dev, family, alpha, grouped):
-    rng = np.random.default_rng(3)
-    n, p, B = 500, 11, 32
+# K1's variants and the shapes that take them: one warp (slice A's B 32, p
+# <= 32), many warps with column groups, 16 lanes a row, and l2 (a ring
+# does not fit beside the state at B 2048)
+K1_SHAPES = {"ring_warp": (500, 11, 32), "ring_warp20": (600, 20, 32), "ring_groups": (1000, 9, 256),
+             "ring_lanes": (300, 200, 32), "l2": (4096, 9, 2048)}
+K1_FAMILIES = [("gaussian", 1), ("binomial", 1), ("poisson", 1), ("multinomial", 3), ("mgaussian", 2)]
+K1_PENALTIES = [(0.0, "ungrouped"), (0.7, "ungrouped"), (0.7, "grouped")]  # ridge, elastic net, group lasso
+
+
+def _k1_problem(dev, family, k, n, p, B, seed=3):
+    rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, p))
-    k = {"multinomial": 3, "mgaussian": 2}.get(family, 1)
     y = {"binomial": lambda: (rng.random((n, 1)) < 0.4).astype(float),
          "poisson": lambda: rng.poisson(1.5, (n, 1)).astype(float),
          "multinomial": lambda: np.eye(3)[rng.integers(0, 3, n)]}.get(family, lambda: rng.normal(size=(n, k)))()
@@ -132,21 +138,122 @@ def test_epoch_kernel_matches_twin(dev, family, alpha, grouped):
         np.concatenate([a, np.zeros((n_pad - n,) + a.shape[1:])]), dtype=torch.float32, device=dev)
     fam = get_family(family, n_classes=k, smoothness=8.0)
     fam.n_classes = k
-    pen = select_penalty(alpha, family, "grouped" if grouped else "ungrouped")
-    data = ek.pad_data(pad(x), pad(y), pad(np.ones(n)), pad(0.2 * rng.normal(size=(n, k))),
+    data = ek.pad_data(pad(x), pad(y), pad(rng.uniform(0.5, 1.5, n)), pad(0.2 * rng.normal(size=(n, k))),
                        torch.tensor(rng.uniform(0, 2, p), dtype=torch.float32, device=dev))
     st0 = SagaState(*(torch.tensor(0.1 * rng.normal(size=s), dtype=torch.float32, device=dev)
                       for s in [(k, p), (k,), (n_pad, k), (k, p), (k,)]))
-    ps = ek.pad_state(st0, p)
-    starts = torch.tensor(rng.permutation(n_pad // B) * B, dtype=torch.int32, device=dev)
-    run = (data, ps, starts, B, fam, pen, 0.01, 0.02, 0.03, float(n))
+    orders = torch.tensor(np.stack([rng.permutation(n_pad // B) for _ in range(4)]) * B, dtype=torch.int32,
+                          device=dev)
+    return data, ek.pad_state(st0, p), fam, orders
+
+
+def _k1_check(data, ps, orders, B, fam, pen, run, scale_tol=1e-4):
+    """saga_epochs against epochs_reference: the same epochs run and stop
+    flag, the state at scale_tol x scale, pad lanes zero, the same bits
+    over two launches."""
+    out, stats = ek.saga_epochs(data, ps, orders, B, fam, pen, **run)
+    again, stats2 = ek.saga_epochs(data, ps, orders, B, fam, pen, **run)
+    ref, rstats = ek.epochs_reference(data, ps, orders, B, fam, pen, **run)
+    torch.cuda.synchronize()
+    ran, mc, ms, fin = stats.tolist()
+    assert ran == rstats[0] and fin == rstats[3]
+    for a, b, c in zip(out, ref, again):
+        torch.testing.assert_close(a, b, atol=scale_tol * max(1.0, float(b.abs().max())), rtol=0)
+        assert torch.equal(a, c)
+    assert torch.equal(stats, stats2)
+    k, p = data.k, data.p
+    assert float(out.w[:, p:].abs().max()) == 0.0 and float(out.w[k:].abs().max() if k < ek.KP else 0.0) == 0.0
+    return stats
+
+
+@pytest.mark.parametrize("pen", range(len(K1_PENALTIES)))
+@pytest.mark.parametrize("family,k", K1_FAMILIES)
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_epoch_kernel_variants_match_twin(dev, shape, family, k, pen):
+    """Every variant on the five families and three penalties, with
+    offsets and penalty factors: four epochs in one launch, the refresh
+    every second one, against the twin at 1e-4 x scale."""
+    n, p, B = K1_SHAPES[shape]
+    alpha, tm = K1_PENALTIES[pen]
+    data, ps, fam, orders = _k1_problem(dev, family, k, n, p, B)
+    pl = ek.plan(p, k, B, True)
+    assert pl.variant == shape.split("_")[0]
+    before = dict(ek.saga_epochs.launches_by_variant)
+    run = dict(gamma=0.01, l1=0.02 * alpha, l2=0.02 * (1 - alpha), w_total=float(n), it0=0, t_conv=0.0,
+               refresh_every=2)
+    stats = _k1_check(data, ps, orders, B, fam, select_penalty(alpha, family, tm), run)
+    assert stats[0] == 4
+    assert ek.saga_epochs.launches_by_variant[pl.variant] == before[pl.variant] + 2
+
+
+@pytest.mark.parametrize("family,alpha,grouped", [
+    ("gaussian", 0.8, False), ("binomial", 0.0, False), ("poisson", 0.5, False),
+    ("multinomial", 0.9, True), ("mgaussian", 0.5, False),
+])
+def test_epoch_kernel_matches_twin(dev, family, alpha, grouped):
+    """One epoch (saga_epoch, a chunk of one), refresh on and off."""
+    k = {"multinomial": 3, "mgaussian": 2}.get(family, 1)
+    n, B = 500, 32
+    data, ps, fam, orders = _k1_problem(dev, family, k, n, 11, B)
+    pen = select_penalty(alpha, family, "grouped" if grouped else "ungrouped")
+    run = (data, ps, orders[0], B, fam, pen, 0.01, 0.02, 0.03, float(n))
     for refresh in (True, False):
         out = ek.saga_epoch(*run, refresh=refresh)
         ref = ek.epoch_reference(*run, refresh=refresh)
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
-        assert float(out.w[:, p:].abs().max()) == 0.0 and float(out.w[k:].abs().max()) == 0.0
+        assert float(out.w[:, 11:].abs().max()) == 0.0 and float(out.w[k:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_epoch_kernel_stops_where_the_twin_does(dev, shape):
+    """A convergence tolerance that stops mid-chunk: the same epoch, and
+    epochs e + 1 and on never run."""
+    n, p, B = K1_SHAPES[shape]
+    data, ps, fam, orders = _k1_problem(dev, "gaussian", 1, n, p, B, seed=5)
+    orders = torch.cat([orders, orders.flip(0)])
+    pen = select_penalty(0.5, "gaussian", "ungrouped")
+    run = dict(gamma=0.01, l1=0.01, l2=0.01, w_total=float(n), it0=0, refresh_every=1)
+    # the relative change of epoch 3 (counting from 1) as the tolerance
+    cut = ek.epochs_reference(data, ps, orders[:2], B, fam, pen, **run)[0]
+    third, st3 = ek.epochs_reference(data, cut, orders[2:3], B, fam, pen, **run)
+    t_conv = float(st3[1] / st3[2]) * 1.0001
+    stats = _k1_check(data, ps, orders, B, fam, pen, dict(run, t_conv=t_conv))
+    assert 1 <= stats[0] < orders.shape[0]
+
+
+@pytest.mark.parametrize("shape", list(K1_SHAPES))
+def test_epoch_kernel_block_that_recurs_across_epochs(dev, shape):
+    """Epoch e's last block is epoch e + 1's first: the prefetch must read
+    the g_mem that the end of epoch e wrote."""
+    n, p, B = K1_SHAPES[shape]
+    data, ps, fam, orders = _k1_problem(dev, "binomial", 1, n, p, B, seed=7)
+    o = orders.cpu()
+    for e in range(o.shape[0] - 1):
+        first = o[e + 1].tolist().index(int(o[e, -1]))
+        o[e + 1, [0, first]] = o[e + 1, [first, 0]]
+    run = dict(gamma=0.02, l1=0.0, l2=0.01, w_total=float(n), it0=1, t_conv=0.0, refresh_every=3)
+    stats = _k1_check(data, ps, o.to(dev), B, fam, select_penalty(0.0, "binomial", "ungrouped"), run)
+    assert stats[0] == o.shape[0]
+
+
+def test_epoch_kernel_divergence_and_all_zero(dev):
+    """A step far too large stops at the first non-finite epoch (NaN and
+    inf read as not finite, as torch.max on the host sees them); a lasso
+    that keeps w at zero stops after one epoch."""
+    n, p, B = K1_SHAPES["ring_warp"]
+    data, ps, fam, orders = _k1_problem(dev, "gaussian", 1, n, p, B, seed=9)
+    pen = select_penalty(1.0, "gaussian", "ungrouped")
+    for gamma in (40.0, 400.0):
+        run = dict(gamma=gamma, l1=1e-3, l2=0.0, w_total=float(n), it0=0, t_conv=0.0, refresh_every=1)
+        out, stats = ek.saga_epochs(data, ps, orders, B, fam, pen, **run)
+        _, rstats = ek.epochs_reference(data, ps, orders, B, fam, pen, **run)
+        assert stats[3] == 0.0 and rstats[3] == 0.0 and stats[0] == rstats[0] < orders.shape[0]
+    zero = ps._replace(w=torch.zeros_like(ps.w), g_sum=torch.zeros_like(ps.g_sum))
+    run = dict(gamma=0.01, l1=1e3, l2=0.0, w_total=float(n), it0=0, t_conv=0.0, refresh_every=1)
+    out, stats = ek.saga_epochs(data, zero, orders, B, fam, pen, **run)
+    assert stats.tolist() == [1.0, 0.0, 0.0, 1.0] and float(out.w.abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("name,family", [("heart", "binomial"), ("wine", "multinomial")])

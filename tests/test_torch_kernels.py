@@ -8,8 +8,9 @@ in interpret mode as the JAX package's own tests run it:
     pallas_kernels.fused_head_step_at(interpret=True) at the
     tests/test_pallas.py cases, with its bounds (f32: g atol 1e-5, corr
     atol 2e-3; bf16: g atol 3e-2, corr atol 2e-2 * max|corr|);
-  * K1 (epoch_kernel.saga_epoch's twin) vs epoch_kernel.build(interpret=
-    True) for one f32 epoch from the same state and block starts, across
+  * K1 (epoch_kernel.saga_epochs' twin, a chunk of one epoch) vs
+    epoch_kernel.build(interpret=True) for one f32 epoch from the same
+    state and block starts, across
     5 families x 3 penalties with offsets / penalty factors / refresh on
     and off, at 1e-5 relative;
   * K2's launch plan (head_kernel.plan) over a grid of shapes: shared
@@ -319,10 +320,11 @@ def test_epoch_twin_matches_pallas(family, pen):
     out_j = epoch_j(ps_j, key, jnp.float32(gamma), jnp.float32(l1), jnp.float32(l2), it=0)
 
     tt = lambda a: None if a is None else torch.tensor(a)  # noqa: E731
-    epoch_t = ek.build_epoch(tt(x), tt(y), tt(weights), w_total, tfam, tpen, tcfg,
-                             offs=tt(offs) if with_offs else None, pf=tt(pf) if with_pf else None)
+    epochs_t = ek.build_epochs(tt(x), tt(y), tt(weights), w_total, tfam, tpen, tcfg,
+                               offs=tt(offs) if with_offs else None, pf=tt(pf) if with_pf else None)
     ps_t = ek.pad_state(SagaState(**{f: torch.tensor(v) for f, v in state.items()}), p)
-    out_t = epoch_t(ps_t, torch.tensor(order), gamma, l1, l2, it=0)
+    out_t, stats = epochs_t(ps_t, torch.tensor(order)[None], gamma, l1, l2, it0=0)
+    assert stats[0] == 1  # a chunk of one epoch
 
     for name, a, b in zip(ek.PadState._fields, out_t, out_j):
         b = np.asarray(b)

@@ -159,9 +159,11 @@ def test_head_kernel_never_serves_poisson():
 
 def test_epoch_counter_untouched_on_cpu():
     x, y = tst.load_wine()
-    before = ek.saga_epoch.launches
+    before = ek.saga_epochs.launches
     f = tst.fit(x, y, family="multinomial", nlambda=3, dtype="float32", use_epoch_kernel=True, device="cpu")
-    assert f.stats["epoch_kernel"] is True and ek.saga_epoch.launches == before
+    assert f.stats["epoch_kernel"] is True and ek.saga_epochs.launches == before
+    # the twin ran the chunks: fewer of them than epochs
+    assert 0 < f.stats["epoch_chunks"] < f.npasses
 
 
 # ---------------------------------------------------------------------------
