@@ -281,7 +281,7 @@ def _k1_case(rng, dev, name, x, y, family_name, alpha, grouped=False, offs=None,
     data = ek.pad_data(t(padrows(x)), t(padrows(y_enc)), t(wts),
                        None if offs is None else t(padrows(offs.reshape(n, -1))),
                        None if pf is None else t(pf.astype(np.float32)))
-    P = data.x.shape[1]
+    P = -(-p // 128) * 128  # the padded state's width
     ps = ek.PadState(
         w=np.zeros((ek.KP, P), np.float32), ivec=np.zeros((2, ek.KP), np.float32),
         g_mem=np.zeros((n_pad, ek.KP), np.float32), g_sum=np.zeros((ek.KP, P), np.float32),
@@ -483,8 +483,7 @@ def phase_k1(rng, dev):
             "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "device_ms": dev_ms,
             "no_refresh_ms": ms_nr, "no_refresh_device_ms": dev_nr, "refresh_ms": refresh_ms,
             "refresh_device_ms": refresh_dev, "step_us": step_us, "step_device_us": step_dev_us,
-            "chunk16_ms_per_epoch": ms_chunk, "chunk16_device_ms_per_epoch": dev_chunk,
-            "earlier_ms": EARLIER_K1["epoch"][0], "earlier_device_ms": EARLIER_K1["epoch"][1]}
+            "chunk16_ms_per_epoch": ms_chunk, "chunk16_device_ms_per_epoch": dev_chunk}
 
 
 # ---------------------------------------------------------------------------
@@ -554,8 +553,7 @@ def check_slice_a(f, wall, launches, dev, card):
     print(f"  slice A golden path (alpha=1, f32 through K1): max|dbeta|/scale = {rel_g:.3e} (bound 2e-3)")
     check(rel_g <= 2e-3, "slice A: K1 fit misses the golden path")
     return {"wall_s": wall, "epochs": f.npasses, "chunks": chunks, "plain_lambdas": head_n,
-            "plain_wall_s": wall_plain, "plain_epochs": f_plain.npasses, "profile": prof,
-            "earlier_wall_s": EARLIER_K1["slice_a"][0]}
+            "plain_wall_s": wall_plain, "plain_epochs": f_plain.npasses, "profile": prof}
 
 
 def _multinomial_data(seed: int, n=65536, p=784, k=10):

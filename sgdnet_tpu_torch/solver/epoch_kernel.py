@@ -16,6 +16,8 @@ order, same epoch-end refresh.  State rides in the padded layout of the
 JAX kernel (classes padded to KP = 8 lanes, features to a 128 multiple)
 across the whole lambda path; pad lanes stay exactly zero, so the
 convergence check over the padded tile equals the check over the real one.
+The data (EpochData) is padded only to the kernel's own, narrower layout:
+rows of p rounded up to 4 columns, classes to 1, 2, 4 or 8 lanes.
 
 `saga_epochs` launches the kernel for CUDA tensors and runs
 `epochs_reference`, the plain torch version (a loop of `epoch_reference`
@@ -143,41 +145,32 @@ class PadState(NamedTuple):
 
 
 class EpochData(NamedTuple):
-    """The padded, contiguous inputs (built once per fit): the twin's layout
-    (x (n_pad, P), y / offsets (n_pad, KP)) and the kernel's (xk (n_pad,
-    px), yk / offk (n_pad, kc))."""
+    """The padded, contiguous inputs (built once per fit) in the kernel's
+    layout: rows of p rounded up to px = a multiple of 4 columns, k classes
+    rounded up to kc = 1, 2, 4 or 8 lanes, pads zero."""
 
-    x: torch.Tensor  # (n_pad, P)
-    y: torch.Tensor  # (n_pad, KP)
+    x: torch.Tensor  # (n_pad, px)
+    y: torch.Tensor  # (n_pad, kc)
     wt: torch.Tensor  # (n_pad,)
-    offs: torch.Tensor | None  # (n_pad, KP)
-    pf: torch.Tensor | None  # (P,), pad columns 0
+    offs: torch.Tensor | None  # (n_pad, kc)
+    pf: torch.Tensor | None  # (px,)
     p: int
     k: int
-    xk: torch.Tensor  # (n_pad, px)
-    yk: torch.Tensor  # (n_pad, kc)
-    offk: torch.Tensor | None  # (n_pad, kc)
 
 
 def pad_data(x, y, weights, offs=None, pf=None, dtype=torch.float32) -> EpochData:
     n_pad, p = x.shape
     k = y.shape[1]
-    P = _ceil_mult(max(p, 1), 128)
     px, kc = _ceil_mult(max(p, 1), 4), _pow2_at_least(k)
 
     def padded(a, shape):
         out = torch.zeros(shape, dtype=dtype, device=x.device)
-        out[:, : a.shape[1]] = a
+        out[..., : a.shape[-1]] = a
         return out
 
-    pf_pad = None
-    if pf is not None:
-        pf_pad = torch.zeros((P,), dtype=dtype, device=x.device)
-        pf_pad[:p] = pf
     return EpochData(
-        padded(x, (n_pad, P)), padded(y, (n_pad, KP)), weights.to(dtype=dtype, copy=True),
-        None if offs is None else padded(offs, (n_pad, KP)), pf_pad, p, k,
-        padded(x, (n_pad, px)), padded(y, (n_pad, kc)), None if offs is None else padded(offs, (n_pad, kc)),
+        padded(x, (n_pad, px)), padded(y, (n_pad, kc)), weights.to(dtype=dtype, copy=True),
+        None if offs is None else padded(offs, (n_pad, kc)), None if pf is None else padded(pf, (px,)), p, k,
     )
 
 
@@ -211,7 +204,7 @@ def unpad_state(ps: PadState, k: int, p: int):
 
 
 def _gradient(family, lp, yb, k: int):
-    """Family gradient on (B, KP) with only the first k lanes real."""
+    """Family gradient on (B, kc) with only the first k lanes real."""
     name = family.name
     if name in ("gaussian", "mgaussian"):
         return lp - yb
@@ -245,10 +238,14 @@ def _prox(penalty, w_half, threshold):
 def epoch_reference(data: EpochData, ps: PadState, starts, B: int, family, penalty,
                     gamma: float, l1: float, l2: float, w_total: float,
                     decay: float = 1.0, fit_intercept: bool = True, refresh: bool = True) -> PadState:
-    """Plain torch version of one kernel epoch on the padded layout."""
+    """Plain torch version of one kernel epoch: the work on the kernel's
+    (kc, px) part of the state, written into a copy of the padded state
+    (the input is left untouched)."""
     x, y, wt = data.x, data.y, data.wt
-    w, ivec, g_mem, g_sum = (t.clone() for t in ps)
-    kmask = (torch.arange(KP, device=x.device) < data.k).to(torch.float32)
+    kc, px = y.shape[1], x.shape[1]
+    w, g_sum = ps.w[:kc, :px].clone(), ps.g_sum[:kc, :px].clone()
+    ivec, g_mem = ps.ivec[:, :kc].clone(), ps.g_mem[:, :kc].clone()
+    kmask = (torch.arange(kc, device=x.device) < data.k).to(torch.float32)
     for start in torch.as_tensor(starts).tolist():
         rows = slice(start, start + B)
         xb = x[rows]
@@ -259,7 +256,7 @@ def epoch_reference(data: EpochData, ps: PadState, starts, B: int, family, penal
         g = _gradient(family, lp, y[rows], data.k) * wtb * kmask
         gc = g - g_mem[rows]
         g_mem[rows] = g
-        corr = gc.T @ xb  # (KP, P)
+        corr = gc.T @ xb  # (kc, px)
         bw = torch.clamp(torch.sum(wtb), min=1e-12)
         grad_est = corr / bw + g_sum
         if data.pf is not None:
@@ -276,7 +273,10 @@ def epoch_reference(data: EpochData, ps: PadState, starts, B: int, family, penal
     if refresh:
         g_sum = (g_mem.T @ x) / w_total
         ivec[1] = torch.sum(g_mem, dim=0) / w_total
-    return PadState(w, ivec, g_mem, g_sum)
+    out = PadState(*(t.clone() for t in ps))
+    out.w[:kc, :px], out.g_sum[:kc, :px] = w, g_sum
+    out.ivec[:, :kc], out.g_mem[:, :kc] = ivec, g_mem
+    return out
 
 
 def epoch_stats(w, w_prev, intercept):
@@ -334,23 +334,17 @@ def epochs_reference(data: EpochData, ps: PadState, orders, B: int, family, pena
 
 def saga_epochs(data: EpochData, ps: PadState, orders, B: int, family, penalty,
                 gamma: float, l1: float, l2: float, w_total: float, decay: float = 1.0,
-                fit_intercept: bool = True, it0: int = 0, t_conv: float = 0.0, refresh_every: int = 1,
-                inplace: bool = False):
+                fit_intercept: bool = True, it0: int = 0, t_conv: float = 0.0, refresh_every: int = 1):
     """Up to E = orders.shape[0] SAGA epochs over the (E, T) block starts
     `orders` in one launch, with the refresh cadence and stopping rule of
-    `epochs_reference`; returns (state, stats) as it does, stats on the
-    state's device.  `inplace` updates `ps` itself (the caller's own copy)
-    and returns it; else `ps` is left untouched.  CUDA tensors launch the
-    Hopper kernel (or raise); CPU tensors run `epochs_reference`."""
+    `epochs_reference`; returns (state, stats) as it does: a new PadState
+    (`ps` is left untouched) and stats on the state's device.  CUDA tensors
+    launch the Hopper kernel (or raise); CPU tensors run
+    `epochs_reference`."""
     if not data.x.is_cuda:
-        out, stats = epochs_reference(data, ps, orders, B, family, penalty, gamma, l1, l2, w_total, decay,
-                                      fit_intercept, it0, t_conv, refresh_every)
-        if inplace:
-            for t, v in zip(ps, out):
-                t.copy_(v)
-            out = ps
-        return out, stats
-    n_pad, P = data.x.shape
+        return epochs_reference(data, ps, orders, B, family, penalty, gamma, l1, l2, w_total, decay,
+                                fit_intercept, it0, t_conv, refresh_every)
+    n_pad, P = data.x.shape[0], _ceil_mult(max(data.p, 1), 128)
     T = n_pad // B
     if not supported(n_pad, data.p, data.k, B, data.x.dtype, data.offs is not None):
         raise ValueError(f"epoch kernel: unsupported problem n_pad={n_pad}, p={data.p}, k={data.k}, B={B}")
@@ -370,17 +364,19 @@ def saga_epochs(data: EpochData, ps: PadState, orders, B: int, family, penalty,
     if ps.w.shape != (KP, P) or ps.g_sum.shape != (KP, P) or ps.ivec.shape != (2, KP) \
             or ps.g_mem.shape != (n_pad, KP):
         raise ValueError("epoch kernel: state does not match the padded layout")
-    if any(t is not None and t.data_ptr() % 16 for t in (data.xk, data.yk, data.wt, data.offk)):
-        raise ValueError("epoch kernel: the kernel layout's tensors must start on 16 bytes (pad_data makes them)")
-    out = ps if inplace else PadState(*(t.clone() for t in ps))
+    if any(t is not None and t.data_ptr() % 16 for t in (data.x, data.y, data.wt, data.offs)):
+        raise ValueError("epoch kernel: the data's tensors must start on 16 bytes (pad_data makes them)")
     pl = plan(data.p, data.k, B, data.offs is not None)
+    if data.x.shape[1] != pl.px or data.y.shape[1] != pl.kc:
+        raise ValueError("epoch kernel: the data does not match the kernel layout (pad_data makes it)")
+    out = PadState(*(t.clone() for t in ps))
     wprev = torch.empty((pl.kc * pl.px,), dtype=torch.float32, device=dev)
     stats = torch.empty((4,), dtype=torch.float32, device=dev)
     log_smooth = math.log(family.smoothness) if family.name == "poisson" else 0.0
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     code = build.load_library().sgd_epochs(
-        orders.data_ptr(), orders.shape[0], T, B, n_pad, data.xk.data_ptr(), pl.px, data.p,
-        data.yk.data_ptr(), data.wt.data_ptr(), ptr(data.offk), ptr(data.pf),
+        orders.data_ptr(), orders.shape[0], T, B, n_pad, data.x.data_ptr(), pl.px, data.p,
+        data.y.data_ptr(), data.wt.data_ptr(), ptr(data.offs), ptr(data.pf),
         out.w.data_ptr(), out.ivec.data_ptr(), out.g_mem.data_ptr(), out.g_sum.data_ptr(), P,
         wprev.data_ptr(), stats.data_ptr(),
         data.k, pl.kc, _FAMILY_CODE[family.name], _PENALTY_CODE[penalty.name], log_smooth,
@@ -411,15 +407,15 @@ def saga_epoch(data: EpochData, ps: PadState, starts, B: int, family, penalty,
 
 
 def build_epochs(x, y, weights, w_total, family, penalty, config, offs=None, pf=None):
-    """Return `epochs_fn(ps, orders, gamma, l1, l2, it0, t_conv, inplace) ->
+    """Return `epochs_fn(ps, orders, gamma, l1, l2, it0, t_conv) ->
     (ps, stats)` running the epochs of `orders` (E, T block indices) in one
     call, with the refresh cadence of `config`."""
     data = pad_data(x, y, weights, offs, pf)
     B = config.batch_size
     every = max(config.g_sum_refresh_every, 1) if config.g_sum_refresh else 0
 
-    def epochs_fn(ps, orders, gamma, l1, l2, it0=0, t_conv=0.0, inplace=False):
+    def epochs_fn(ps, orders, gamma, l1, l2, it0=0, t_conv=0.0):
         return saga_epochs(data, ps, torch.as_tensor(orders) * B, B, family, penalty, gamma, l1, l2, w_total,
-                           config.intercept_decay, config.fit_intercept, it0, t_conv, every, inplace)
+                           config.intercept_decay, config.fit_intercept, it0, t_conv, every)
 
     return epochs_fn

@@ -509,9 +509,10 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         # K1: the attempt's epochs in chunks of one launch each, growing
         # from CHUNK_FIRST to CHUNK_CAP epochs (one epoch a chunk under
         # debug, for the loss trace); the kernel stops at the epoch where
-        # the rule below would, and one sync a chunk reads its statistics
+        # the rule below would, and one sync a chunk reads its statistics;
+        # a chunk returns a new state, so the warm start stays as it was for
+        # fit_one_robust's retries
         losses = np.full((max_iter if config.debug else 0,), np.nan, dt)
-        ps = ek.PadState(*(t.clone() for t in state))  # the attempt's own copy, updated in place
 
         def draw(it0, n):
             return torch.stack([torch.as_tensor(order_fn(lam_idx, attempt, it0 + e)) for e in range(n)])
@@ -521,7 +522,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         orders = draw(0, min(size, max_iter))
         while not done and it < max_iter:
             n = orders.shape[0]
-            ps, stats = epochs_fn(ps, orders, gamma, l1, l2, it0=it, t_conv=float(t_conv), inplace=True)
+            state, stats = epochs_fn(state, orders, gamma, l1, l2, it0=it, t_conv=float(t_conv))
             # the next chunk's orders are drawn while this one runs (used
             # only if it runs to its end)
             size = min(2 * size, ek.CHUNK_CAP) if not config.debug else 1
@@ -529,11 +530,15 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
                 orders = draw(it + n, min(size, max_iter - it - n))
             ran, max_change, max_size, finite = stats.tolist()
             done, rel = ek.stop_rule(max_change, max_size, finite == 1.0, t_conv, dt)
+            if ran < n and not done:
+                # the next orders were drawn for epoch it + n onwards
+                raise RuntimeError(f"epoch kernel stopped after {int(ran)} of {n} epochs where the host's rule "
+                                   "would go on")
             if config.debug:
-                losses[it] = _loss(ps)
+                losses[it] = _loss(state)
             it += int(ran)
             n_chunks[0] += 1
-        return ps, it, losses, rel
+        return state, it, losses, rel
 
     def fit_one_epochs(state, gamma, l1, l2, lam_idx, attempt, t_conv):
         losses = np.full((max_iter if config.debug else 0,), np.nan, dt)

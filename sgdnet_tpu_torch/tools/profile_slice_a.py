@@ -3,12 +3,8 @@ B 32, through K1 by default on CUDA) with its wall, epochs, K1 launches,
 host syncs and device busy share.
 
     python -m sgdnet_tpu_torch.tools.profile_slice_a [--device cuda|cpu] [--reps 3] [--nlambda 100]
-    python sgdnet_tpu_torch/tools/profile_slice_a.py --root DIR ...
 
-`--root` measures the `sgdnet_tpu_torch` package of another checkout (run
-the file by its path then, so that no package is imported before it):
-two checkouts compared in one process on one card.  After a warm-up fit,
-`reps` timed fits give the wall (host clock around fit(), which returns
+After a warm-up fit, `reps` timed fits give the wall (host clock around fit(), which returns
 host arrays); one more fit under `torch.cuda.set_sync_debug_mode("warn")`
 counts the host syncs torch reports; one more under torch.profiler gives
 the kernels' device time, and busy share = device time / the median
@@ -20,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import statistics
 import sys
 import time
@@ -35,15 +30,9 @@ def _device_us(event) -> float:
     return getattr(event, "self_device_time_total", 0.0) or getattr(event, "self_cuda_time_total", 0.0)
 
 
-def _k1_launches() -> int:
-    from sgdnet_tpu_torch.solver import epoch_kernel as ek
-
-    wrapper = getattr(ek, "saga_epochs", None) or ek.saga_epoch  # the launching wrapper of either design
-    return wrapper.launches
-
-
 def run(device=None, reps: int = 3, nlambda: int = 100) -> dict:
     import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
     from sgdnet_tpu_torch.utils.device import describe, resolve_device, sync
 
     dev = resolve_device(device)
@@ -56,12 +45,12 @@ def run(device=None, reps: int = 3, nlambda: int = 100) -> dict:
     walls, launches = [], []
     for _ in range(reps):
         sync(dev)
-        before = _k1_launches()
+        before = ek.saga_epochs.launches
         t0 = time.perf_counter()
         f = fit()
         walls.append(time.perf_counter() - t0)
-        launches.append(_k1_launches() - before)
-    out = {"root": os.path.dirname(os.path.dirname(os.path.abspath(st.__file__))), "device": describe(dev),
+        launches.append(ek.saga_epochs.launches - before)
+    out = {"device": describe(dev),
            "lambdas": f.n_lambda, "epochs": f.npasses, "epoch_kernel": f.stats["epoch_kernel"],
            "k1_launches": launches[-1], "k1_chunks": f.stats.get("epoch_chunks"), "walls_s": walls,
            "wall_s": statistics.median(walls), "host_syncs": None, "device_s": None, "busy_share": None,
@@ -91,18 +80,13 @@ def run(device=None, reps: int = 3, nlambda: int = 100) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=None, help="a checkout whose sgdnet_tpu_torch to measure")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card; raises without one)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--nlambda", type=int, default=100)
     a = ap.parse_args(argv)
-    if a.root is not None:
-        sys.path.insert(0, os.path.abspath(a.root))
     print(json.dumps(run(a.device, a.reps, a.nlambda)))
     return 0
 
 
 if __name__ == "__main__":
-    if __package__ in (None, ""):  # run by path: this checkout unless --root names another
-        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     sys.exit(main())

@@ -219,16 +219,36 @@ def test_all_zero_stops_after_one_epoch():
     _same_bits(out, ref)
 
 
-def test_inplace_updates_the_callers_state():
+@pytest.mark.parametrize("p, k, px, kc", [(7, 1, 8, 1), (9, 3, 12, 4), (12, 8, 12, 8)])
+def test_pad_data_is_the_kernel_layout(p, k, px, kc):
+    """One layout for the kernel and its twin: rows of p rounded up to 4
+    columns, classes to 1, 2, 4 or 8 lanes, penalty factors to px; pads zero."""
+    rng = np.random.default_rng(p + k)
+    n = 24
+    x, y, offs = (torch.tensor(rng.normal(size=s), dtype=torch.float32) for s in [(n, p), (n, k), (n, k)])
+    pf = torch.tensor(rng.uniform(0.5, 1.5, p), dtype=torch.float32)
+    data = ek.pad_data(x, y, torch.ones(n), offs, pf)
+    assert data.x.shape == (n, px) and data.y.shape == (n, kc) and data.offs.shape == (n, kc)
+    assert data.pf.shape == (px,) and (data.p, data.k) == (p, k)
+    assert torch.equal(data.x[:, :p], x) and torch.equal(data.y[:, :k], y) and torch.equal(data.pf[:p], pf)
+    assert float(data.x[:, p:].abs().sum() + data.y[:, k:].abs().sum() + data.offs[:, k:].abs().sum()
+                 + data.pf[p:].abs().sum()) == 0.0
+    pl = ek.plan(p, k, 8, True)
+    assert (pl.px, pl.kc) == (px, kc)
+
+
+def test_saga_epochs_leaves_the_callers_state():
+    """A chunk returns a new state: fit_one_robust retries from the same
+    warm start."""
     data, ps, fam, n, T = _problem(seed=12)
     pen = select_penalty(0.5, "gaussian", "ungrouped")
     orders = _orders(T, 3, seed=13)
-    mine = ek.PadState(*(t.clone() for t in ps))
-    out, _ = ek.saga_epochs(data, mine, orders, 16, fam, pen, **RUN, w_total=float(n), decay=0.5, inplace=True)
-    ref, _ = ek.saga_epochs(data, ps, orders, 16, fam, pen, **RUN, w_total=float(n), decay=0.5)
-    assert out is mine
-    _same_bits(mine, ref)
-    assert float(ps.w.abs().max()) == 0.0  # not in place: the input is untouched
+    before = ek.PadState(*(t.clone() for t in ps))
+    out, _ = ek.saga_epochs(data, ps, orders, 16, fam, pen, **RUN, w_total=float(n), decay=0.5)
+    ref, _ = ek.epochs_reference(data, before, orders, 16, fam, pen, **RUN, w_total=float(n), decay=0.5)
+    _same_bits(out, ref)
+    _same_bits(ps, before)
+    assert float(out.w.abs().max()) > 0.0 and all(u is not v for u, v in zip(out, ps))
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +382,25 @@ def test_k1_divergence_reads_as_not_converged():
     assert np.isinf(t_res.final_change).any()
 
 
+def test_a_kernel_stop_the_host_rule_would_not_make_raises(monkeypatch):
+    """The next chunk's orders are drawn for the epochs after a whole chunk:
+    a launch that stops early where the host's rule goes on must fail, not
+    shift the sampler."""
+    real = ek.saga_epochs
+    monkeypatch.setattr(ek, "saga_epochs", lambda data, ps, orders, *a, **kw: real(data, ps, orders[:1], *a, **kw))
+    rng = np.random.default_rng(14)
+    n, p, B = 64, 5, 16
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    y = (x[:, :1] + 0.1 * rng.normal(size=(n, 1))).astype(np.float32)
+    fam = get_family("gaussian")
+    fam.n_classes = 1
+    cfg = tsaga.SolverConfig(batch_size=B, max_iter=40, sampling="block", use_epoch_kernel=True)
+    with pytest.raises(RuntimeError, match="stopped after 1 of 4 epochs"):
+        tsaga.fit_path(torch.tensor(x), torch.tensor(y), torch.ones(n), [0.05], [1e-3], [1e-3], 1e-7,
+                       tsaga.init_state(n, p, 1, torch.float32), fam, select_penalty(0.5, "gaussian", "ungrouped"),
+                       cfg)
+
+
 # ---------------------------------------------------------------------------
 # the launch plan
 # ---------------------------------------------------------------------------
@@ -435,3 +474,14 @@ def test_ctypes_signature_is_the_c_entry():
     for q, t in zip(params, sig):
         want = "P" if "*" in q else ("F" if q.startswith("float") else "I")
         assert t is kinds[want], q
+
+
+def test_profile_slice_a_on_the_cpu():
+    """tools/profile_slice_a.py's run at three lambdas on the CPU: the plain
+    path (no K1 launch, no chunks) and no device numbers."""
+    from sgdnet_tpu_torch.tools import profile_slice_a
+
+    out = profile_slice_a.run("cpu", reps=1, nlambda=3)
+    assert out["lambdas"] == 3 and out["epochs"] > 0 and out["epoch_kernel"] is False
+    assert out["k1_launches"] == 0 and out["k1_chunks"] == 0 and len(out["walls_s"]) == 1
+    assert out["busy_share"] is None and out["device_s"] is None and out["host_syncs"] is None
