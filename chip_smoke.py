@@ -33,24 +33,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
      wall times and samples/s;
-  7. K3 / K4 (the BlockCOO tail kernels) against their twins at the shapes
-     of the Pallas probes they replace (p 47000, E 11520, B 8192, k 1) and
-     on every block of slice C's tail: relative error, identical bits over
-     two runs, kernel / twin / torch.sparse.mm times and the bound;
+  7. K3 / K4 (the BlockCOO tail kernels) against their plain versions at
+     the shape of the Pallas probes they replace (p 47000, E 11520, B
+     8192), on every block of slice C's tail and on every block of slice
+     E's (split at the layout planner's width): K3 at k 1, 3 and 10, f32
+     and f64, without and with its epilogue (base, intercept, offsets), K4
+     at k 1; relative error, identical bits over two runs; K3's time a
+     call (the checked wrapper, and the step's bound launcher bare and with
+     the plain step's operands), on the device, its plain version,
+     torch.sparse.mm and the bound on C's and E's largest block, K4's the
+     same;
   8. K2 against its twin on a bf16 head at slice C's width (106496 x 16384,
      B 8192, k 1, the last block), identical bits over two runs, its time,
      device time and GB/s of head beside the two bf16 torch.mm products;
   9. slice C, the north-star sparse workload (a copy of bench.py's
-     make_sparse_binomial: n 100000, p 47000, 76 nonzeros a row, Zipf
-     columns; binomial, alpha 1, 10 lambdas) through fit() on a bf16
-     16384-wide hybrid head: K2 + K3 + K4 by default, held per lambda by
-     penalized objective against the same fit on plain torch ops;
+     make_sparse_binomial in tools/profile_sparse_slices.py: n 100000, p
+     47000, 76 nonzeros a row, Zipf columns; binomial, alpha 1, 10 lambdas)
+     through fit() on a bf16 16384-wide hybrid head: K2 + K3 + K4 by
+     default, held per lambda by penalized objective against the same fit
+     on plain torch ops; its K3 launches, walls, and the step it built run
+     for one epoch (ms a step, kernel launches a step under torch.profiler);
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
      products are torch), held the same way;
- 11. P1 (the whole-epoch prototype probe) against its twin over 2 epochs at
-     the probe's size (N 4224, P 128, B 32), identical bits over two runs,
-     its times beside K1's on abalone; then the probe's entry point
-     (sgdnet_tpu_torch.tools.bench_epoch_kernel, 200 epochs);
+ 11. P1 (the whole-epoch prototype probe, on K1's design) against its twin
+     over 2 epochs at the probe's size (N 4224, P 128, B 32), identical
+     bits over two runs, and K1 at P1's shape (the same data, starts, gamma,
+     l1 and l2, no intercept, no refresh) against the same twin; P1's and
+     K1's time a call and ns a step of device time, one epoch a launch,
+     whose difference is what K1's generality costs a step; then the
+     probe's entry point (sgdnet_tpu_torch.tools.bench_epoch_kernel, 200
+     epochs);
  12. P2 and P3 (the head-stream probes) against their twin on a seeded
      106496 x 16384 bf16 head, per tile height and ring config, with the
      full-head torch.sum ceiling; then their entry points
@@ -84,11 +96,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: the times this script measured on an NVIDIA H100 80GB HBM3 at 700.00 W
-#: before K2 and K4 were redesigned (K2: a 32-row tile per CTA, read twice;
-#: K4: one thread per column): ms a call and ms on the device.  Printed
+#: before K2, K4 and K3 were redesigned (K2: a 32-row tile per CTA, read
+#: twice; K4: one thread per column; K3: one thread a (row, class), checks
+#: and the stream read on every call; P1: PR 1's one-CTA K1 design, operands
+#: from L2): ms a call and ms on the device (P1: and ns a step).  Printed
 #: beside the new times only: the `kernels` line holds what this run measured
 EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
-           "k4_probe_shape": (0.0942, 0.0307)}
+           "k4_probe_shape": (0.0942, 0.0307), "k3": (0.0316, 0.0034), "p1": (0.4422, 0.4532, 3433)}
 #: the same card model and limit before K1 was redesigned (its earlier
 #: persistent 512-thread CTA an epoch, operands from L2, a second launch
 #: for the refresh): an abalone epoch in ms a call and ms on the device, µs
@@ -138,15 +152,9 @@ def _fmt(v) -> str:
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn over `reps` calls (CUDA events,
     after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import cuda_ms as timed
+
+    return timed(fn, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -611,64 +619,50 @@ def check_slice_b(f, wall, launches, xt, y, dev, card, seed):
 
 
 # ---------------------------------------------------------------------------
-# the sparse slices' data: a copy of bench.py's make_sparse_binomial
-# ---------------------------------------------------------------------------
-
-
-def make_sparse_binomial(n=100_000, p=47_000, nnz_per_row=76, seed=0):
-    """rcv1-scale synthetic (bench.py:142-165): fixed nonzeros per row, Zipf
-    column use (rank + 10)^-1.15, 5% true features; as a canonical scipy
-    CSR (duplicates summed) and y (n,)."""
-    import scipy.sparse as sp
-
-    rng = np.random.default_rng(seed)
-    weights = (np.arange(p) + 10.0) ** -1.15
-    cdf = np.cumsum(weights) / weights.sum()
-    cols = np.searchsorted(cdf, rng.random((n, nnz_per_row))).astype(np.int32).clip(0, p - 1)
-    vals = rng.normal(size=(n, nnz_per_row)).astype(np.float32)
-    w_true = rng.normal(size=p) * (rng.random(p) < 0.05) * 3.0
-    lp = (vals * w_true[cols]).sum(axis=1)
-    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-lp))).astype(np.float32)
-    x = sp.csr_matrix((vals.ravel(), cols.ravel(), np.arange(0, n * nnz_per_row + 1, nnz_per_row)), shape=(n, p))
-    x.sum_duplicates()
-    return x, y
-
-
-SLICE_C = dict(family="binomial", alpha=1.0, nlambda=10, lambda_min_ratio=0.05, maxit=100, batch_size=8192,
-               sampling="block", hybrid=True, hybrid_max_head=16384, hybrid_coverage=0.98,
-               hybrid_head_dtype="bfloat16", g_sum_refresh_every=4, hybrid_memory_budget=8e9)
-SLICE_D = dict(SLICE_C, hybrid_max_head=32768, hybrid_coverage=0.995, hybrid_head_dtype="int8",
-               g_sum_refresh_every=8)
-#: the planner picks the head width (and the split: coverage 1.0)
-SLICE_E = dict(SLICE_D, hybrid_max_head="auto")
-
-
-# ---------------------------------------------------------------------------
 # phase 7: K3 / K4 against their twins
 # ---------------------------------------------------------------------------
 
 
 def _tail_block_check(tk, bt, blk, rng, dev, what):
-    """Kernel vs twin on one block (k = 1): max relative error and whether
-    two runs give the same bits."""
-    w = torch.as_tensor(rng.standard_normal((1, bt.n_cols), dtype=np.float32), device=dev)
+    """K3 against its plain version on one block at k 1, 3 and 10, f32 and
+    f64, without and with its epilogue (base, intercept, offsets), and K4 at
+    k 1 in f32: the worst relative and absolute errors; each kernel gives
+    the same bits in two runs."""
+    import dataclasses
+
+    worst_rel = worst_err = 0.0
+    for bd in (bt, dataclasses.replace(bt, vals=bt.vals.double(), vals_by_col=bt.vals_by_col.double())):
+        for k in (1, 3, 10):
+            t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=bd.dtype, device=dev)  # noqa: E731
+            w = t(k, bd.n_cols)
+            for given in ({}, dict(base=t(bd.batch, k), intercept=t(k), offs=t(bd.batch, k))):
+                f = tk.coo_tail_forward(bd, blk, w, **given)
+                ref = tk.coo_tail_forward_reference(bd, blk, w, **given)
+                same = torch.equal(f, tk.coo_tail_forward(bd, blk, w, **given))
+                torch.cuda.synchronize()
+                err = float((f - ref).abs().max())
+                rel = err / max(float(ref.abs().max()), 1e-30)
+                tag = f"{what}, block {blk}, k {k}, {bd.dtype}, {'with' if given else 'without'} its epilogue"
+                check(rel <= 1e-5, f"K3 disagrees with its plain version ({tag}): rel {rel:.3e}")
+                check(same, f"K3 gave different bits in two runs ({tag})")
+                worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
     gc = torch.as_tensor(rng.standard_normal((bt.batch, 1), dtype=np.float32), device=dev)
-    f, o = tk.coo_tail_forward(bt, blk, w), tk.coo_tail_outer(bt, blk, gc)
-    f_ref, o_ref = tk.coo_tail_forward_reference(bt, blk, w), tk.coo_tail_outer_reference(bt, blk, gc)
-    same = torch.equal(f, tk.coo_tail_forward(bt, blk, w)) and torch.equal(o, tk.coo_tail_outer(bt, blk, gc))
+    o, o_ref = tk.coo_tail_outer(bt, blk, gc), tk.coo_tail_outer_reference(bt, blk, gc)
+    same = torch.equal(o, tk.coo_tail_outer(bt, blk, gc))
     torch.cuda.synchronize()
-    rel = max(float((f - f_ref).abs().max()) / max(float(f_ref.abs().max()), 1e-30),
-              float((o - o_ref).abs().max()) / max(float(o_ref.abs().max()), 1e-30))
-    err = max(float((f - f_ref).abs().max()), float((o - o_ref).abs().max()))
-    check(rel <= 1e-5, f"K3/K4 disagree with their twins ({what}, block {blk}): rel {rel:.3e}")
-    check(same, f"K3/K4 gave different bits in two runs ({what}, block {blk})")
-    return rel, err, w, gc
+    err = float((o - o_ref).abs().max())
+    rel = err / max(float(o_ref.abs().max()), 1e-30)
+    check(rel <= 1e-5, f"K4 disagrees with its plain version ({what}, block {blk}): rel {rel:.3e}")
+    check(same, f"K4 gave different bits in two runs ({what}, block {blk})")
+    return max(worst_rel, rel), max(worst_err, err)
 
 
-def _tail_times(tk, bt, blk, w, gc, dev):
-    """Kernel, twin and torch.sparse.mm times on one block, and the bounds:
-    each true entry's row, column and value once, the touched w columns /
-    gc rows once, the output once; 2 flops an entry."""
+def _tail_times(tk, bt, blk, dev, rng, outer=True):
+    """K3 (and K4) on one block at k 1: a call (the checked wrapper; for K3
+    also the step's bound launcher, bare and with the plain step's base and
+    intercept), device time, the plain version and torch.sparse.mm, and the
+    bounds: each true entry's row, column and value once, the touched w
+    columns / gc rows once, the output once; 2 flops an entry."""
     import scipy.sparse as sp
 
     c = int(bt.counts[blk])
@@ -682,72 +676,112 @@ def _tail_times(tk, bt, blk, w, gc, dev):
         return torch.sparse_csr_tensor(torch.as_tensor(m.indptr), torch.as_tensor(m.indices),
                                        torch.as_tensor(m.data), size=m.shape, device=dev)
 
+    w = torch.as_tensor(rng.standard_normal((1, bt.n_cols), dtype=np.float32), device=dev)
+    gc = torch.as_tensor(rng.standard_normal((bt.batch, 1), dtype=np.float32), device=dev)
+    base, icpt = torch.zeros((bt.batch, 1), device=dev), torch.zeros(1, device=dev)
     a_t, at_t = csr(a), csr(at)
     wt = w.T.contiguous()
     u = int((bt.col_seg[blk, 1:] > bt.col_seg[blk, :-1]).sum())  # distinct columns
+    launch = tk.ForwardLauncher(bt, 1, torch.float32)
     k3 = {"ms": cuda_ms(lambda: tk.coo_tail_forward(bt, blk, w), 200),
+          "bound_call_ms": cuda_ms(lambda: launch(blk, w), 200),
+          "step_call_ms": cuda_ms(lambda: launch(blk, w, base=base, intercept=icpt), 200),
           "device_ms": device_ms(lambda: tk.coo_tail_forward(bt, blk, w), 50, ("coo_forward",)),
           "plain_ms": cuda_ms(lambda: tk.coo_tail_forward_reference(bt, blk, w), 50),
           "library_ms": cuda_ms(lambda: torch.sparse.mm(a_t, wt), 200),
-          **roofline(12 * c + 4 * u + 4 * bt.batch, 2 * c, F32_FLOPS)}
+          **roofline(12 * c + 4 * u + 4 * bt.batch, 2 * c, F32_FLOPS), "block": blk, "block_entries": c,
+          "lanes": bt.lanes}
+    check(k3["device_ms"] is not None, "the profile shows no coo_forward kernel: no K3 device time measured")
+    if not outer:
+        return k3, None, u
     k4 = {"ms": cuda_ms(lambda: tk.coo_tail_outer(bt, blk, gc), 200),
           "device_ms": device_ms(lambda: tk.coo_tail_outer(bt, blk, gc), 50, ("coo_outer",)),
           "plain_ms": cuda_ms(lambda: tk.coo_tail_outer_reference(bt, blk, gc), 50),
           "library_ms": cuda_ms(lambda: torch.sparse.mm(at_t, gc), 200),
-          **roofline(12 * c + 4 * bt.batch + 4 * bt.n_cols, 2 * c, F32_FLOPS)}
+          **roofline(12 * c + 4 * bt.batch + 4 * bt.n_cols, 2 * c, F32_FLOPS), "block": blk, "block_entries": c}
     check(k4["device_ms"] is not None, "the profile shows no coo_outer kernel: no K4 device time measured")
-    return k3, k4, c, u
+    return k3, k4, u
+
+
+def _packed_tail(tail, n, B, seed, dev):
+    """A tail as fit() packs it: the row shuffle, rows padded to B, per-block COO."""
+    from sgdnet_tpu_torch.core.sparse import BlockCOO
+
+    rperm = torch.as_tensor(np.random.default_rng(seed + 0x5EED).permutation(n), device=dev)
+    return BlockCOO.from_padded(tail.take_rows(rperm).pad_rows(-(-n // B) * B), B)
+
+
+def _print_times(label, r):
+    print(f"    {label}: {r['ms']:.4f} ms a call"
+          + (f" ({r['bound_call_ms']:.4f} through the step's bound launcher, {r['step_call_ms']:.4f} with the "
+             f"plain step's base and intercept)" if "bound_call_ms" in r else "")
+          + f", {_fmt(r['device_ms'])} on the device; plain {r['plain_ms']:.4f} ms, torch.sparse.mm "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
 def phase_tail(rng, dev, csr, seed):
-    from sgdnet_tpu_torch.core.sparse import BlockCOO, HybridCSR
+    from sgdnet_tpu_torch.core.layout import plan_layout
+    from sgdnet_tpu_torch.core.sparse import BlockCOO, HybridCSR, scipy_column_stats
     from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C, SLICE_E
 
+    B, n = SLICE_C["batch_size"], csr.shape[0]
     # (a) the probes' own shapes: one block of E = 11520 true entries over
     # B = 8192 rows and p = 47000 Zipf columns
-    B, p, E = 8192, 47000, 11520
+    p, E = 47000, 11520
     zipf = (np.arange(p) + 10.0) ** -1.15
     cols = np.searchsorted(np.cumsum(zipf) / zipf.sum(), rng.random(E)).clip(0, p - 1).astype(np.int32)
     rows = np.sort(rng.integers(0, B, E)).astype(np.int32)
     bt4 = BlockCOO.from_arrays(rows[None], cols[None], rng.standard_normal((1, E)).astype(np.float32), B, p,
                                counts=[E], device=dev)
-    rel4, err4, w4, gc4 = _tail_block_check(tk, bt4, 0, rng, dev, "probe shape")
-    k3_4, k4_4, _, u4 = _tail_times(tk, bt4, 0, w4, gc4, dev)
-    print(f"  K3/K4 at the probes' shape (p 47000, E 11520, B 8192, k 1; {u4} distinct columns): rel err "
-          f"{rel4:.3e} (bound 1e-5), bits identical over two runs")
-    for name, r in (("K3 forward", k3_4), ("K4 outer", k4_4)):
-        print(f"    {name}: kernel {r['ms']:.4f} ms a call ({_fmt(r['device_ms'])} on the device), twin "
-              f"{r['plain_ms']:.4f} ms, torch.sparse.mm "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
-    # (b) slice C's tail as fit() packs it: split, the row shuffle, pad, pack
+    rel4, err4 = _tail_block_check(tk, bt4, 0, rng, dev, "probe shape")
+    k3_4, k4_4, u4 = _tail_times(tk, bt4, 0, dev, rng)
+    print(f"  K3/K4 at the probes' shape (p 47000, E 11520, B 8192; {u4} distinct columns, K3 {bt4.lanes} lanes a "
+          f"row): K3 at k 1, 3, 10, f32 / f64, with and without its epilogue, K4 at k 1: worst rel err {rel4:.3e} "
+          f"(bound 1e-5), bits identical over two runs")
+    _print_times("K3 forward", k3_4)
+    _print_times("K4 outer", k4_4)
+    # (b) slice C's tail as fit() packs it: split, the row shuffle, pad, pack;
+    # (c) slice E's, split at the planner's width with the int8 ingestion's
+    # scale-only standardized tail
     th, _ = HybridCSR.split_columns(csr, coverage=SLICE_C["hybrid_coverage"], max_head=SLICE_C["hybrid_max_head"],
                                     memory_budget=SLICE_C["hybrid_memory_budget"], head_dtype="bfloat16", device=dev)
-    tail = th.tail
+    bt_c = _packed_tail(th.tail, n, B, seed, dev)
     th = None
-    n = csr.shape[0]
-    n_pad = -(-n // B) * B
-    rperm = torch.as_tensor(np.random.default_rng(seed + 0x5EED).permutation(n), device=dev)
-    bt = BlockCOO.from_padded(tail.take_rows(rperm).pad_rows(n_pad), B)
+    plan = plan_layout(csr, batch_size=B, head_itemsize=1, g_sum_refresh_every=SLICE_E["g_sum_refresh_every"],
+                       hbm_budget=SLICE_E["hybrid_memory_budget"])
+    te, _ = HybridCSR.split_columns(csr, coverage=1.0, max_head=plan.max_head, head_dtype="int8",
+                                    memory_budget=SLICE_E["hybrid_memory_budget"], std_stats=scipy_column_stats(csr),
+                                    head_form="nnz", device=dev)
+    bt_e = _packed_tail(te.tail, n, B, seed, dev)
+    te = None
+    out = {"probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"]}
     worst_rel, worst_err = rel4, err4
-    for blk in range(bt.n_blocks):
-        rel, err, w, gc = _tail_block_check(tk, bt, blk, rng, dev, "slice C")
-        worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
-    blk = int(torch.argmax(bt.counts))
-    k3, k4, c, u = _tail_times(tk, bt, blk, w, gc, dev)
-    counts = bt.counts.cpu().numpy()
-    print(f"  K3/K4 on slice C's {bt.n_blocks} blocks (B 8192, p 47000, E {bt.rows.shape[1]}, true entries "
-          f"{counts.min()}-{counts.max()}): worst rel err {worst_rel:.3e} (bound 1e-5), bits identical over two runs")
-    for name, r in (("K3 forward", k3), ("K4 outer", k4)):
-        print(f"    {name}, block {blk} ({c} entries, {u} distinct columns): kernel {r['ms']:.4f} ms a call "
-              f"({_fmt(r['device_ms'])} on the device), twin "
-              f"{r['plain_ms']:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
-    print(f"    K4 earlier: {EARLIER['k4'][0]} ms a call / {EARLIER['k4'][1]} ms on the device on slice C's block, "
-          f"{EARLIER['k4_probe_shape'][0]} / {EARLIER['k4_probe_shape'][1]} at the probes' shape")
-    extra = {"max_abs_err": worst_err, "max_rel_err": worst_rel, "block_entries": c}
-    return ({**k3, **extra, "probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"]},
-            {**k4, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"],
-             "probe_shape_library_ms": k4_4["library_ms"]})
+    for name, bt, d in (("C", bt_c, SLICE_C["hybrid_max_head"]), ("E", bt_e, plan.max_head)):
+        for blk in range(bt.n_blocks):
+            rel, err = _tail_block_check(tk, bt, blk, rng, dev, f"slice {name}")
+            worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
+        counts = bt.counts.cpu().numpy()
+        blk = int(np.argmax(counts))
+        k3, k4, u = _tail_times(tk, bt, blk, dev, rng)
+        print(f"  K3/K4 on slice {name}'s {bt.n_blocks} blocks (head D {d}; B 8192, p 47000, E {bt.rows.shape[1]}, "
+              f"true entries {counts.min()}-{counts.max()}, {counts.sum() / (bt.n_blocks * B):.2f} a row, K3 "
+              f"{bt.lanes} lanes a row): K3 at k 1, 3, 10, f32 / f64, with and without its epilogue, K4 at k 1: "
+              f"worst rel err {worst_rel:.3e} (bound 1e-5), bits identical over two runs")
+        print(f"    block {blk}: {counts[blk]} entries, {u} distinct columns")
+        _print_times("K3 forward", k3)
+        _print_times("K4 outer", k4)
+        out[name] = (k3, k4)
+    print(f"    earlier (PR 2's K3, one thread a row): {EARLIER['k3'][0]} ms a call / {EARLIER['k3'][1]} ms on the "
+          f"device on slice C's block; K4 earlier: {EARLIER['k4'][0]} / {EARLIER['k4'][1]} ms")
+    extra = {"max_abs_err": worst_err, "max_rel_err": worst_rel}
+    k3c, k4c = out["C"]
+    k3e, k4e = out["E"]
+    k3 = {**k3c, **extra, "probe_shape_ms": k3_4["ms"], "probe_shape_device_ms": k3_4["device_ms"],
+          "slice_e_block": k3e}
+    k4 = {**k4c, **extra, "probe_shape_ms": k4_4["ms"], "probe_shape_device_ms": k4_4["device_ms"],
+          "probe_shape_library_ms": k4_4["library_ms"], "slice_e_block": k4e}
+    return k3, k4
 
 
 # ---------------------------------------------------------------------------
@@ -831,13 +865,17 @@ def _objective(f, x, y, sd):
 
 
 def run_sparse_slice(csr, y, dev, seed, kw):
+    """The slice's fit: (fit, wall, peak device memory, the step it built)."""
     import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import capture_steps
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    f = st.fit(csr, y, device=dev, seed=seed, **kw)
-    return f, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    with capture_steps() as made:
+        t0 = time.perf_counter()
+        f = st.fit(csr, y, device=dev, seed=seed, **kw)
+        wall = time.perf_counter() - t0
+    return f, wall, torch.cuda.max_memory_allocated(), made[-1]
 
 
 def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
@@ -870,8 +908,9 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
             "busy_share": busy / wall, "top": top}
 
 
-def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw, card):
+def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, seed, kw, card):
     import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import step_profile
 
     lay = f.stats["layout"]
     k2 = kw["hybrid_head_dtype"] == "bfloat16"
@@ -890,6 +929,10 @@ def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw,
     nnz_s = f.npasses * n * 76 / path
     print(f"  slice {name} through the kernels: {wall:.3f} s fit wall, {path:.3f} s path, {wall - path:.3f} s set-up, "
           f"{f.npasses} epochs, {nnz_s:.4g} nnz/s on the path, peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    sp_ = step_profile(*step, dev)
+    print(f"  slice {name} step (one epoch of its {sp_['steps']} blocks, the fit's own step): {sp_['ms_per_step']:.4f} "
+          f"ms a step on the host clock, {sp_['kernels_per_step']:.2f} kernel launches a step "
+          f"({sp_['device_events_per_step']:.2f} device events) as torch.profiler counts them [{card}]")
     plain_kw = {k: v for k, v in kw.items() if k != "nlambda"}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -908,7 +951,8 @@ def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw,
           f"objective {ok.round(6)}; dev_ratio {dr.round(4)}; return codes {f.return_codes.tolist()}")
     check(rel <= 1e-4, f"slice {name}: the kernels' path disagrees with the plain path")
     prof = profile_slice(name, csr, y, dev, seed, kw, card)
-    return {"profile": prof, "wall_s": wall, "path_s": path, "setup_s": wall - path, "epochs": f.npasses, "nnz_per_s": nnz_s,
+    return {"profile": prof, "step": sp_, "wall_s": wall, "path_s": path, "setup_s": wall - path, "epochs": f.npasses,
+            "nnz_per_s": nnz_s,
             "peak_bytes": peak, "head_width": lay["head_width"], "launches": launches, "plain_wall_s": wall_p,
             "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p, "plain_peak_bytes": peak_p,
             "objective_max_rel_diff": rel}
@@ -919,7 +963,16 @@ def check_sparse_slice(name, f, wall, peak, launches, csr, y, sd, dev, seed, kw,
 # ---------------------------------------------------------------------------
 
 
-def phase_p1(rng, dev, k1):
+def phase_p1(rng, dev):
+    """P1 against its plain version (two epochs, identical bits over two
+    runs), its times, and K1 at P1's shape: gaussian, no intercept, P1's
+    gamma, l1 and l2, the same data, B and block starts (K1's sampler
+    orders replaced by P1's starts), its refresh off, one epoch a launch as
+    P1 runs; K1's epoch is held to P1's plain version too."""
+    from sgdnet_tpu_torch.families import get_family
+    from sgdnet_tpu_torch.penalties import select_penalty
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+    from sgdnet_tpu_torch.solver.saga import SagaState
     from sgdnet_tpu_torch.tools import probe_kernels as pk
 
     N, P, B = 4224, 128, 32
@@ -939,24 +992,52 @@ def phase_p1(rng, dev, k1):
     same = all(torch.equal(u, v) for u, v in zip(a, b))
     rel = max(float((u - r).abs().max()) / float(r.abs().max()) for u, r in zip(a, ref))
     err = max(float((u - r).abs().max()) for u, r in zip(a, ref))
-    print(f"  P1 two epochs at N {N}, P {P}, B {B}: max rel err in w, g_mem, g_sum {rel:.3e} (bound 1e-5), "
-          f"bits identical over two runs: {same}")
+    threads, lanes, groups, stages = pk.epoch_probe_plan(P, B)
+    print(f"  P1 two epochs at N {N}, P {P}, B {B} ({threads} threads, {lanes} lanes a row, {groups} column groups, "
+          f"{stages} ring stages): max rel err in w, g_mem, g_sum {rel:.3e} (bound 1e-5), bits identical over two "
+          f"runs: {same}")
     check(rel <= 1e-5 and same, "P1 disagrees with its twin or with itself")
+
+    # K1 at P1's shape on the same data and starts
+    fam, pen = get_family("gaussian"), select_penalty(0.5, "gaussian", "ungrouped")
+    check(pen.name == "elastic_net", "K1 at P1's shape needs the elastic-net prox")
+    data = ek.pad_data(x, y[:, :1], wt[:, 0])
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    ps0 = ek.pad_state(SagaState(z(1, P), z(1), z(N, 1), z(1, P), z(1)), P)
+    k1_args = (B, fam, pen, float(pk.GAMMA), float(pk.L1), float(pk.L2), float(N))
+    k1_kw = dict(fit_intercept=False, refresh_every=0)
+    ps = ps0
+    for st in starts:
+        ps, _ = ek.saga_epochs(data, ps, st.reshape(1, -1), *k1_args, **k1_kw)
+    torch.cuda.synchronize()
+    k1_rel = max(float((u - r).abs().max()) / float(r.abs().max())
+                 for u, r in ((ps.w[0, :P], ref[0][0]), (ps.g_mem[:, 0], ref[1][:, 0]), (ps.g_sum[0, :P], ref[2][0])))
+    print(f"  K1 at P1's shape ({ek.plan(P, 1, B).threads} threads, {ek.plan(P, 1, B).lanes} lanes a row): two "
+          f"epochs against P1's plain version, max rel err {k1_rel:.3e} (bound 1e-5)")
+    check(k1_rel <= 1e-5, "K1 at P1's shape disagrees with P1's plain version")
+
     state = two_epochs(pk.epoch_probe)
-    ms = cuda_ms(lambda: pk.epoch_probe(starts[0], x, y, wt, *state, B), 200)
+    p1_call = lambda: pk.epoch_probe(starts[0], x, y, wt, *state, B)  # noqa: E731
+    k1_call = lambda: ek.saga_epochs(data, ps, starts[0].reshape(1, -1), *k1_args, **k1_kw)  # noqa: E731
+    ms = cuda_ms(p1_call, 200)
     plain_ms = cuda_ms(lambda: pk.epoch_probe_reference(starts[0], x, y, wt, *state, B), 3)
-    dev_ms = device_ms(lambda: pk.epoch_probe(starts[0], x, y, wt, *state, B), 50, ("epoch_probe",))
+    dev_ms = device_ms(p1_call, 50, ("epoch_probe",))
+    k1_ms = cuda_ms(k1_call, 200)
+    k1_dev = device_ms(k1_call, 50, ("saga_epochs_kernel",))
+    check(dev_ms is not None and k1_dev is not None, "the profile shows no P1 or K1 kernel: no device time")
     # x, the used lanes of y / wt / g_mem, w, g_sum and the starts once in;
     # g_mem's lane, w and g_sum once out; two products a step
-    b = roofline(4 * (N * P + 3 * N + 2 * P + T) + 4 * (N + 2 * P), 4 * N * P, F32_FLOPS)
-    k1_ns = k1["step_device_us"] * 1e3
-    p1_ns = None if dev_ms is None else dev_ms / T * 1e6
-    print(f"  P1 time an epoch ({T} steps; K1's earlier design: one CTA, operands from L2): kernel "
-          f"{ms:.4f} ms a call ({_fmt(dev_ms)} on the device, {p1_ns if p1_ns is None else round(p1_ns, 1)} ns a "
-          f"step), twin {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); K1 on abalone now: "
-          f"{k1_ns:.1f} ns a step of device time (131 steps, the refresh apart)")
-    return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
-            "device_ms": dev_ms, "ns_per_step_device": p1_ns, "k1_ns_per_step_device": k1_ns}
+    bnd = roofline(4 * (N * P + 3 * N + 2 * P + T) + 4 * (N + 2 * P), 4 * N * P, F32_FLOPS)
+    p1_ns, k1_ns = dev_ms / T * 1e6, k1_dev / T * 1e6
+    print(f"  P1 time an epoch ({T} steps): {ms:.4f} ms a call ({dev_ms:.4f} ms on the device, {p1_ns:.1f} ns a "
+          f"step; earlier design: {EARLIER['p1'][0]} / {EARLIER['p1'][1]} ms, {EARLIER['p1'][2]} ns), twin "
+          f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    print(f"  K1 at P1's shape, one epoch a launch: {k1_ms:.4f} ms a call ({k1_dev:.4f} ms on the device, {k1_ns:.1f} "
+          f"ns a step): K1's generality costs {k1_ns - p1_ns:.1f} ns a step over P1")
+    return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None,
+            "device_ms": dev_ms, "ns_per_step_device": p1_ns, "k1_at_p1_shape_ms": k1_ms,
+            "k1_at_p1_shape_device_ms": k1_dev, "k1_at_p1_shape_ns_per_step_device": k1_ns,
+            "k1_at_p1_shape_max_rel_err": k1_rel}
 
 
 # ---------------------------------------------------------------------------
@@ -1086,13 +1167,15 @@ def planner_neighbours(csr, y, dev, seed, plan, card) -> list:
     fresh in one sequence that times the plan's width first and last: each
     width's measured ms an epoch beside the cost model's.  The model is
     checked against the plan's own prediction at the plan's width first."""
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_E
+
     d = plan["max_head"]
     model_d = model_epoch_ms(csr, d, SLICE_E)
     check(abs(model_d - (plan["head_ms"] + plan["tail_ms"])) <= 1e-9 * model_d,
           f"the cost model here ({model_d} ms) is not the planner's ({plan['head_ms'] + plan['tail_ms']} ms)")
     rows = []
     for width in (d, -(-(d // 2) // 128) * 128, 2 * d, d):
-        f, _, _ = run_sparse_slice(csr, y, dev, seed, dict(SLICE_E, hybrid_max_head=width, hybrid_coverage=1.0))
+        f, _, _, _ = run_sparse_slice(csr, y, dev, seed, dict(SLICE_E, hybrid_max_head=width, hybrid_coverage=1.0))
         check(f.stats["layout_plan"] is None and f.stats["layout"]["head_width"] == width
               and f.stats["tail_kernel"] is True and np.isfinite(f.beta).all(),
               f"slice E at width {width} did not run as asked: {f.stats['layout']}")
@@ -1143,6 +1226,7 @@ def main(argv=None) -> int:
 
     print("phase 7: K3 / K4 vs twins")
     from sgdnet_tpu_torch.core.sparse import scipy_column_stats
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C, SLICE_D, SLICE_E, make_sparse_binomial
 
     t0 = time.perf_counter()
     csr, y_sp = make_sparse_binomial(seed=args.seed)
@@ -1169,22 +1253,22 @@ def main(argv=None) -> int:
     fit_a = fit_b = xt = None
     print("phase 9: slice C")
     _reset_launches()
-    fit_c, wall_c, peak_c = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_C)
+    fit_c, wall_c, peak_c, step_c = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_C)
     launches["C"] = _launches()
-    slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], csr, y_sp, sd, dev, args.seed, SLICE_C,
-                                 card)
-    fit_c = None
+    slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], step_c, csr, y_sp, sd, dev, args.seed,
+                                 SLICE_C, card)
+    fit_c = step_c = None
     print("phase 10: slice D")
     _reset_launches()
-    fit_d, wall_d, peak_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
+    fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
     launches["D"] = _launches()
-    slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], csr, y_sp, sd, dev, args.seed, SLICE_D,
-                                 card)
-    fit_d = None
+    slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], step_d, csr, y_sp, sd, dev, args.seed,
+                                 SLICE_D, card)
+    fit_d = step_d = None
     torch.cuda.empty_cache()
 
     print("phase 11: P1 vs twin")
-    p1 = phase_p1(rng, dev, k1)
+    p1 = phase_p1(rng, dev)
     print("phase 12: P2 / P3 vs twin")
     p2, p3, ceiling = phase_p23(dev, args.seed)
     print("phases 11, 12: the probe entry points, each with the launch counts set to 0 just before it")
@@ -1192,10 +1276,11 @@ def main(argv=None) -> int:
 
     print("phase 13: slice E (the layout planner)")
     _reset_launches()
-    fit_e, wall_e, peak_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
+    fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
     launches["E"] = _launches()
-    slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], csr, y_sp, sd, dev, args.seed, SLICE_E,
-                                 card)
+    slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
+                                 SLICE_E, card)
+    step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
     slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], card)
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,

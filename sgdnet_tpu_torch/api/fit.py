@@ -203,7 +203,12 @@ def fit(
     matrix: with more than 512 columns, or `hybrid=True`, the latter
     becomes a HybridCSR (a dense head of the most frequent columns, f32,
     bf16 or int8 by `hybrid_head_dtype`, and a sparse tail, packed per
-    block as a BlockCOO under block sampling), else a PaddedCSR.  Addition:
+    block as a BlockCOO under block sampling), else a PaddedCSR.  A
+    prebuilt PaddedCSR or HybridCSR of this package is taken as it is,
+    moved to `device` and checked as scipy input is (duplicate columns of
+    a row summed); its coefficients come back in its column order, and
+    `hybrid_head_dtype="int8"` quantizes a float head after standardizing
+    it.  Addition:
     `device` (a torch device) on which every tensor of the fit is created;
     None means the CUDA card and raises RuntimeError when there is none.
 
@@ -274,8 +279,13 @@ def fit(
     head_nnz = None  # int8 head in nonzero form, rebuilt shuffled and padded below
     pre_std = None  # (mean, sd) in original column order when standardized on the host
     pre_row_sq = None  # host row norms of the standardized design (int8 ingestion)
-    is_sparse = _issparse(x)
-    if is_sparse:
+    prebuilt = isinstance(x, (PaddedCSR, HybridCSR))
+    is_sparse = prebuilt or _issparse(x)
+    if prebuilt:
+        # a layout built by the caller: moved to the fit's device and held
+        # to the checks a scipy input gets; its columns stay in its order
+        x = x.ingest(dev, dtype) if isinstance(x, HybridCSR) else x.to(dev, dtype).canonical()
+    elif is_sparse:
         xs = canonical_csr(x)
         if np.isnan(xs.data).any():
             raise ValueError("NA values are not allowed.")
@@ -458,7 +468,7 @@ def fit(
             xc = torch.as_tensor(xc_np, **f64).to(dtype)
         elif isinstance(x, HybridCSR):
             x_center, x_scale = x.column_stats(w_stats)
-            x, xc = x.standardize(x_center, x_scale, donate=True)  # fit built the head: overwrite it
+            x, xc = x.standardize(x_center, x_scale, donate=not prebuilt)  # a head fit built is overwritten
             xc = xc.to(dtype)
         elif is_sparse:
             x_center, x_scale = x.column_stats(w_stats)
@@ -537,6 +547,11 @@ def fit(
         max_sq = float(torch.max(per_row * (weights > 0).to(torch.float64)))
     top_sq = float(power_iteration_sq_norm(x, seed=seed, x_center_scaled=xc)) / w_total if batch_size > 1 else None
     gammas = saga_step_sizes(max_sq, top_sq, l2s, w_total, batch_size, intercept, fam.L_scaling)
+    if head_dtype == torch.int8 and isinstance(x, HybridCSR):
+        # a prebuilt float head is quantized on the device after its
+        # standardization, as the JAX package does (a head fit built from
+        # scipy input is int8 already)
+        x = x.quantize_head()
 
     # ---- pad rows to a multiple of batch_size ----
     n_pad = ((n_samples + batch_size - 1) // batch_size) * batch_size

@@ -2,7 +2,8 @@
 
 link/response/class/coefficients/nonzero prediction types, linear
 interpolation between path points for off-path lambda values, and exact
-refits through the port's `fit`.  Host numpy throughout.
+refits through the port's `fit`.  Host numpy throughout, except for a
+PaddedCSR / HybridCSR `newx`, whose product runs on the layout's device.
 
 Shapes: for single-response families (gaussian, binomial) predictions are
 (n_new, n_s); for multivariate families (multinomial, mgaussian) they are
@@ -12,6 +13,19 @@ Shapes: for single-response families (gaussian, binomial) predictions are
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
+
+
+def _sparse_product(newx, b: np.ndarray) -> np.ndarray:
+    """newx @ b for a scipy matrix, or through a PaddedCSR / HybridCSR's
+    `matmul_dense` on its device, (n_new, n_s) host numpy."""
+    if isinstance(newx, (PaddedCSR, HybridCSR)):
+        vals = newx.values if isinstance(newx, PaddedCSR) else newx.tail.values
+        bt = torch.as_tensor(np.ascontiguousarray(b), dtype=vals.dtype, device=vals.device)
+        return newx.matmul_dense(bt).cpu().numpy()
+    return np.asarray(newx @ b)
 
 
 def lambda_interpolate(lambda_path: np.ndarray, s: np.ndarray):
@@ -126,13 +140,15 @@ def predict(
         )
 
     sparse_newx = False
-    try:
-        import scipy.sparse as sp
+    layout_newx = isinstance(newx, (PaddedCSR, HybridCSR))
+    if not layout_newx:
+        try:
+            import scipy.sparse as sp
 
-        sparse_newx = sp.issparse(newx)
-    except ImportError:
-        pass
-    if not sparse_newx:
+            sparse_newx = sp.issparse(newx)
+        except ImportError:
+            pass
+    if not (sparse_newx or layout_newx):
         if hasattr(newx, "detach"):  # torch tensor
             newx = newx.detach().cpu().numpy()
         newx = np.asarray(newx, dtype=np.float64)
@@ -141,11 +157,11 @@ def predict(
         # NaN rows are allowed and propagate to NaN predictions
 
     # (n_new, k, n_s)
-    if sparse_newx:
+    if sparse_newx or layout_newx:
         n_new = newx.shape[0]
         lp = np.empty((n_new, k, n_s))
-        for kk in range(k):  # sparse matmul per class, no densify
-            lp[:, kk, :] = np.asarray(newx @ beta[:, kk, :].T)
+        for kk in range(k):  # per class, no densify
+            lp[:, kk, :] = _sparse_product(newx, beta[:, kk, :].T)
         lp = lp + a0_2d.T[None, :, :]
     else:
         lp = np.einsum("nj,lkj->nkl", newx, beta) + a0_2d.T[None, :, :]

@@ -131,6 +131,42 @@ class PaddedCSR:
         """The rows of self in the order `perm`."""
         return PaddedCSR(self.indices[perm], self.values[perm], self.nnz[perm], self.n_rows, self.n_cols)
 
+    def to(self, device=None, dtype=None) -> "PaddedCSR":
+        """The same matrix on `device`, its values in `dtype` (each None: as is)."""
+        dev = self.values.device if device is None else device
+        return PaddedCSR(self.indices.to(dev), self.values.to(device=dev, dtype=dtype or self.values.dtype),
+                         self.nnz.to(dev), self.n_rows, self.n_cols)
+
+    def canonical(self, head_cols: int = 0) -> "PaddedCSR":
+        """The checks a scipy input gets at ingestion, for a prebuilt layout:
+        shapes, nnz within the row width, columns in [head_cols, n_cols) on
+        the true entries and (0, 0) pad entries (ValueError otherwise), and
+        duplicate columns within a row summed as `canonical_csr` sums them
+        (then rebuilt on the host, rows in column order); no NaN values."""
+        n, L = self.indices.shape
+        if self.values.shape != (n, L) or self.nnz.shape != (n,) or n != self.n_rows:
+            raise ValueError(f"PaddedCSR arrays do not match its shape ({self.n_rows} rows)")
+        if bool(torch.isnan(self.values).any()):
+            raise ValueError("NA values are not allowed.")
+        if bool(((self.nnz < 0) | (self.nnz > L)).any()):
+            raise ValueError(f"PaddedCSR nnz must lie in [0, {L}] (its row width)")
+        true = torch.arange(L, device=self.nnz.device)[None, :] < self.nnz[:, None]
+        idx = self.indices.long()
+        if bool((true & ((idx < head_cols) | (idx >= self.n_cols))).any()):
+            raise ValueError(f"PaddedCSR columns of true entries must lie in [{head_cols}, {self.n_cols})")
+        if bool((~true & ((idx != 0) | (self.values != 0))).any()):
+            raise ValueError("PaddedCSR pad entries must be (column 0, value 0)")
+        ids = torch.sort(torch.where(true, idx, -1 - torch.arange(L, device=idx.device)[None, :]), dim=1).values
+        if not bool(((ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] >= 0)).any()):
+            return self
+        import scipy.sparse as sp
+
+        t = true.cpu().numpy()
+        rows = np.nonzero(t)[0]
+        x = sp.csr_matrix((self.values.cpu().numpy()[t], (rows, self.indices.cpu().numpy()[t])),
+                          shape=self.shape)  # COO -> CSR sums the duplicates
+        return PaddedCSR.from_scipy(x, dtype=self.values.dtype, lane_multiple=8, device=self.values.device)
+
     def total_nnz(self) -> int:
         return int(self.nnz.sum())
 
@@ -214,6 +250,14 @@ class PaddedCSR:
 # ---------------------------------------------------------------------------
 
 
+def coo_lanes(entries: int, rows: int) -> int:
+    """K3's lanes a row (csrc/coo_tail.cu `coo_lanes`, the same expression):
+    the largest power of two, 1 to 32, not above the mean true entries a
+    row of a tail of `entries` entries over `rows` block rows."""
+    return 1 << ((entries >= 2 * rows) + (entries >= 4 * rows) + (entries >= 8 * rows)
+                 + (entries >= 16 * rows) + (entries >= 32 * rows))
+
+
 #: a column of a block with more entries than this is summed by a whole
 #: warp of K4 (lanes stride over its segment) instead of one thread; K4's
 #: wrapper hands the kernel this number with `heavy_cols`
@@ -252,7 +296,8 @@ class BlockCOO:
     device address of each block's row of each view is computed once
     (`addr`, Python ints) and the kernels' wrappers index no tensor per
     call; `dataclasses.replace` and every constructor run `__post_init__`,
-    which rebuilds the table.
+    which rebuilds the table and picks `lanes`, K3's lanes a row for this
+    tail (`coo_lanes` of its true entries over its block rows).
     """
 
     rows: torch.Tensor
@@ -279,6 +324,7 @@ class BlockCOO:
         #: addr[blk] = the device addresses of block blk's rows of ADDRESSED
         self.addr = [tuple(v.data_ptr() + blk * v.stride(0) * v.element_size() for v in views)
                      for blk in range(self.rows.shape[0])]
+        self.lanes = coo_lanes(int(self.counts.sum()), self.rows.shape[0] * self.batch)
 
     @property
     def n_blocks(self) -> int:
@@ -554,6 +600,26 @@ class HybridCSR:
         tail = PaddedCSR(torch.as_tensor(ti, device=dev), torch.as_tensor(tv, device=dev).to(dtype),
                          torch.as_tensor(t_nnz, device=dev), n, p)
         return cls(head, tail, n, p, head_scale=head_scale), perm
+
+    def ingest(self, device, dtype) -> "HybridCSR":
+        """A prebuilt layout as `fit` takes it: on `device`, the tail's
+        values in `dtype`, the tail checked by `PaddedCSR.canonical` (its
+        true entries off the head's columns), the head's rows those of the
+        layout, an int8 head with its (D,) scales and no NaN in a float
+        head; the BlockCOO is left out (the fit packs its own)."""
+        n, d = self.head.shape
+        if n != self.n_rows or self.tail.n_rows != self.n_rows or self.tail.n_cols != self.n_cols or d > self.n_cols:
+            raise ValueError(f"HybridCSR parts do not match its shape: head {tuple(self.head.shape)}, tail "
+                             f"{self.tail.shape}, layout {self.shape}")
+        quantized = self.head.dtype == torch.int8
+        if quantized != (self.head_scale is not None) or (quantized and tuple(self.head_scale.shape) != (d,)):
+            raise ValueError("an int8 head needs its (D,) head_scale, and only an int8 head has one")
+        head = self.head.to(device)
+        if not quantized and any(bool(torch.isnan(head[s:e]).any()) for s, e in _row_chunks(n, d)):
+            raise ValueError("NA values are not allowed.")
+        tail = self.tail.to(device, dtype).canonical(head_cols=d)
+        scale = None if self.head_scale is None else self.head_scale.to(device)
+        return HybridCSR(head, tail, self.n_rows, self.n_cols, head_scale=scale)
 
     def quantize_head(self) -> "HybridCSR":
         """Symmetric per-column int8 quantization of the head: scale_j =

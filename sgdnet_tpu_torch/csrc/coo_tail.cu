@@ -8,22 +8,36 @@
 // `_coo_batch_predict` / `_coo_batch_outer`.  For block `blk` of a BlockCOO
 // tail (core/sparse.py):
 //
-//   K3 forward   out[r, c]   = sum over entries e of row r   vals[e] * w[c, cols[e]]     (B, k)
-//   K4 outer     corr[c, j]  = sum over entries e of column j vals[e] * gc[rows[e], c]  (k, p)
+//   K3 forward   out[r, c]   = ((base[r, c] + sum over entries e of row r  vals[e] * w[c, cols[e]])
+//                               + intercept[c]) + offs[r, c]                                          (B, k)
+//   K4 outer     corr[c, j]  = sum over entries e of column j vals[e] * gc[rows[e], c]               (k, p)
 //
-// K4 is a sum, not the probe's set: a column recurs within a block.
+// base, intercept and offs are each optional (a null pointer skips its
+// add): K3's epilogue assembles the step's linear predictor in the same
+// launch, in the JAX order of `_batch_predict` (head + tail) followed by
+// the step's + intercept and + offsets.  K4 is a sum, not the probe's set:
+// a column recurs within a block.
 //
-// What bounds them: at the north-star shapes a block holds ~13k-41k true
-// entries of 12 bytes (row, column, value) plus one 4-byte gather each,
-// under a megabyte, i.e. well under a microsecond at 3.35 TB/s; on the card
+// What bounds them: at the north-star shapes a block holds ~10k-140k true
+// entries of 12 bytes (row, column, value) plus one gather each, at most a
+// couple of megabytes, i.e. a microsecond or less at 3.35 TB/s; on the card
 // they are bound by the longest chain of dependent loads one thread walks,
-// and per call by the host (a launch costs more than the kernel runs).
-// Design: both are segment sums over views built once on the host, so
-// neither needs atomics and two runs give identical bits:
+// by how much of the card the launch fills, and per call by the host (a
+// launch costs more than the kernel runs).  Both are segment sums over
+// views built once on the host, so neither needs atomics and two runs give
+// identical bits:
 //   * K3: rows ascend over a block's true entries, so `row_ptr` gives each
-//     batch row a contiguous segment; one thread owns one (row, class) and
-//     sums its segment in entry order.  The pad entries after the true
-//     prefix are never read.
+//     batch row a contiguous segment.  A group of G lanes (G a power of two,
+//     1 to 32, picked per BlockCOO from its mean row length by
+//     `coo_lanes`) owns a row: lane l sums entries l, l + G, ... in entry
+//     order, each entry's column and value loaded once and applied to KC
+//     classes held in registers (chunks of KC classes where k is larger),
+//     and the G lane sums meet in a fixed xor butterfly that leaves the
+//     same bits in every lane.  On slice D's tail (~1.5 entries a row at
+//     most) G is 1, one thread a row; on slice C's (~4.7: its bf16 head
+//     stops at 16384 columns, short of 98% coverage) 4; on slice E's (~17)
+//     16: a lane walks one or two entries, not 17, and the launch has 16x
+//     the threads.  The pad entries after the true prefix are never read.
 //   * K4: the block's rows and values are stored a second time in column
 //     order (`rows_by_col`, `vals_by_col`: the walk reads them contiguously
 //     and only gc[row] is a gather), and `col_seg` maps every one of the p
@@ -42,21 +56,85 @@
 
 namespace {
 
-constexpr int TT = 256;  // threads per CTA
+constexpr int TT = 256;  // threads per CTA of K4
+constexpr int FT = 128;  // threads per CTA of K3: at G = 1, 8192 rows fill 64 CTAs
+
+// K3's lanes a row for a tail of `entries` true entries over `rows` block
+// rows (every block, pad rows included): the largest power of two, 1 to 32,
+// not above the mean entries a row.  BlockCOO.lanes in core/sparse.py is
+// the same expression (tests/test_torch_tail.py evaluates this one).
+constexpr int coo_lanes(long long entries, long long rows) {
+  return /* LANES-FORMULA */ 1 << ((entries >= 2 * rows) + (entries >= 4 * rows) + (entries >= 8 * rows)
+                                   + (entries >= 16 * rows) + (entries >= 32 * rows)) /* END-FORMULA */;
+}
+// the design points: the tails of slices D (~1.5 entries a row in its
+// largest block), C (~4.7 a row) and E (~17), 13 blocks of 8192 rows
+static_assert(coo_lanes(160000, 106496) == 1 && coo_lanes(496000, 106496) == 4 &&
+                  coo_lanes(1805000, 106496) == 16,
+              "K3 lanes formula");
+
+// One group of G lanes a row; KC classes of the row at a time.  Every lane
+// of a warp takes part in the butterfly (a lane past the last row walks an
+// empty segment), so G must divide 32.
+template <typename T, int KC>
+__global__ void __launch_bounds__(FT) coo_forward(const int* __restrict__ row_ptr, const int* __restrict__ cols,
+                                                  const T* __restrict__ vals, const T* __restrict__ w, int B,
+                                                  int k, long long p, int G, const T* __restrict__ base,
+                                                  const T* __restrict__ intercept, const T* __restrict__ offs,
+                                                  T* __restrict__ out) {
+  const int t = blockIdx.x * FT + threadIdx.x;
+  const int r = t / G, l = t & (G - 1);
+  const bool live = r < B;
+  const int e0 = live ? row_ptr[r] : 0, e1 = live ? row_ptr[r + 1] : 0;
+  for (int c0 = 0; c0 < k; c0 += KC) {
+    T acc[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) acc[j] = 0;
+#pragma unroll 4
+    for (int e = e0 + l; e < e1; e += G) {
+      const long long col = cols[e];
+      const T v = vals[e];
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        if (c0 + j < k) acc[j] += v * w[(c0 + j) * p + col];
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < KC; ++j) acc[j] += __shfl_xor_sync(sgd::FULL_MASK, acc[j], o);
+    }
+    if (live) {
+      // the G lanes hold the same sums; lane j % G writes class c0 + j
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const int c = c0 + j;
+        if (c < k && (j & (G - 1)) == l) {
+          const long long o = (long long)r * k + c;
+          T v = acc[j];
+          if (base != nullptr) v = base[o] + v;
+          if (intercept != nullptr) v = v + intercept[c];
+          if (offs != nullptr) v = v + offs[o];
+          out[o] = v;
+        }
+      }
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(TT) coo_forward(const int* __restrict__ row_ptr,
-                                                  const int* __restrict__ cols,
-                                                  const T* __restrict__ vals,
-                                                  const T* __restrict__ w, int B, int k,
-                                                  long long p, T* __restrict__ out) {
-  const long long t = blockIdx.x * (long long)TT + threadIdx.x;
-  if (t >= (long long)B * k) return;
-  const int r = (int)(t / k), c = (int)(t % k);
-  const T* wc = w + c * p;
-  T acc = 0;
-  for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e) acc += vals[e] * wc[cols[e]];
-  out[t] = acc;
+cudaError_t launch_forward(const int* row_ptr, const int* cols, const void* vals, const void* w, int B, int k,
+                           long long p, int G, const void* base, const void* intercept, const void* offs, void* out,
+                           cudaStream_t s) {
+  const unsigned grid = (unsigned)(((long long)B * G + FT - 1) / FT);
+  const T *v = static_cast<const T*>(vals), *wt = static_cast<const T*>(w), *b = static_cast<const T*>(base),
+          *ic = static_cast<const T*>(intercept), *of = static_cast<const T*>(offs);
+  T* o = static_cast<T*>(out);
+  if (k == 1)
+    coo_forward<T, 1><<<grid, FT, 0, s>>>(row_ptr, cols, v, wt, B, k, p, G, b, ic, of, o);
+  else if (k <= 4)
+    coo_forward<T, 4><<<grid, FT, 0, s>>>(row_ptr, cols, v, wt, B, k, p, G, b, ic, of, o);
+  else
+    coo_forward<T, 8><<<grid, FT, 0, s>>>(row_ptr, cols, v, wt, B, k, p, G, b, ic, of, o);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -107,21 +185,16 @@ unsigned grid_of(long long threads) { return (unsigned)((threads + TT - 1) / TT)
 extern "C" {
 
 // K3 on one block: row_ptr (B + 1), cols / vals (E) are that block's rows of
-// the BlockCOO views, w (k, p), out (B, k).  dtype: 0 = float32, 1 = float64.
-// Returns a cudaError_t (0 = launched).
-int sgd_coo_tail_forward(const int* row_ptr, const int* cols, const void* vals, const void* w, int dtype,
-                         int B, int k, long long p, void* out, void* stream) {
+// the BlockCOO views, w (k, p), `lanes` the BlockCOO's G; base (B, k),
+// intercept (k,) and offs (B, k) may each be null; out (B, k).  dtype: 0 =
+// float32, 1 = float64.  Returns a cudaError_t (0 = launched).
+int sgd_coo_tail_forward(const int* row_ptr, const int* cols, const void* vals, const void* w, int dtype, int B,
+                         int k, long long p, int lanes, const void* base, const void* intercept, const void* offs,
+                         void* out, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || k < 1 || B < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_of((long long)B * k);
-  if (dtype == 1)
-    coo_forward<double><<<grid, TT, 0, s>>>(row_ptr, cols, static_cast<const double*>(vals),
-                                            static_cast<const double*>(w), B, k, p,
-                                            static_cast<double*>(out));
-  else
-    coo_forward<float><<<grid, TT, 0, s>>>(row_ptr, cols, static_cast<const float*>(vals),
-                                           static_cast<const float*>(w), B, k, p,
-                                           static_cast<float*>(out));
-  return cudaGetLastError();
+  return dtype == 1 ? launch_forward<double>(row_ptr, cols, vals, w, B, k, p, lanes, base, intercept, offs, out, s)
+                    : launch_forward<float>(row_ptr, cols, vals, w, B, k, p, lanes, base, intercept, offs, out, s);
 }
 
 // K4 on one block: col_seg (p + 1), rows_by_col / vals_by_col (E) and

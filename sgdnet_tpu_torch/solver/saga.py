@@ -151,11 +151,16 @@ def _use_blk_tail(x, sel, B: int) -> bool:
     return isinstance(x, HybridCSR) and x.blk_tail is not None and isinstance(sel, int) and x.blk_tail.batch == B
 
 
-def _tail_predict(x: HybridCSR, w, sel, B: int, kernels: bool = True):
+def _tail_predict(x: HybridCSR, w, sel, B: int, kernels: bool = True, fwd=None, **epilogue):
+    """The tail's part of the block's linear predictors; on the BlockCOO
+    path K3 also adds the `epilogue` operands (base, intercept, offs) in
+    its launch, through the step's bound launcher `fwd` where it has one."""
     if _use_blk_tail(x, sel, B):
+        if kernels and fwd is not None:
+            return fwd(sel // B, w.contiguous(), **epilogue)
         fn = tail_kernel.coo_tail_forward if kernels else tail_kernel.coo_tail_forward_reference
-        return fn(x.blk_tail, sel // B, w.contiguous())
-    return _csr_batch_predict(x.tail, w, sel, B)
+        return fn(x.blk_tail, sel // B, w.contiguous(), **epilogue)
+    return tail_kernel.add_epilogue(_csr_batch_predict(x.tail, w, sel, B), **epilogue)
 
 
 def _tail_outer(x: HybridCSR, g_change, sel, B: int, kernels: bool = True):
@@ -204,6 +209,18 @@ def _batch_outer(x, xc, g_change, sel, B: int, sparse_mode: str, kernels: bool =
     return corr
 
 
+def _linear_predictor(x, xc, w, intercept, offs_b, sel, B: int, kernels: bool = True, fwd=None):
+    """((x_b w^T + intercept) + offs_b) of the selected rows, (B, k), the
+    centering term between the first two adds where `xc` is given.  On the
+    BlockCOO path without `xc`, K3 takes the head's product as its base and
+    assembles the whole sum in its launch (same adds, same order)."""
+    if xc is None and _use_blk_tail(x, sel, B):
+        base = x.head_forward(_rows(x.head, sel, B), w[:, : x.n_head], w.dtype)
+        return _tail_predict(x, w, sel, B, kernels, fwd, base=base, intercept=intercept, offs=offs_b)
+    lp = _batch_predict(x, xc, w, sel, B, kernels) + intercept
+    return lp if offs_b is None else lp + offs_b
+
+
 def _dataset_loss(x, y, weights, w, intercept, family: Family, offs=None, report: bool = True, xc=None,
                   block: int = 1024, kernels: bool = True):
     """Weighted total loss over the dataset (0-d tensor).  `report=True`
@@ -222,9 +239,8 @@ def _dataset_loss(x, y, weights, w, intercept, family: Family, offs=None, report
         block = max(block // 2, 1)
     total = torch.zeros((), dtype=w.dtype, device=w.device)
     for start in range(0, n_pad, block):
-        lp = _batch_predict(x, xc, w, start, block, kernels) + intercept
-        if offs is not None:
-            lp = lp + offs[start : start + block]
+        lp = _linear_predictor(x, xc, w, intercept, None if offs is None else offs[start : start + block], start,
+                               block, kernels)
         total = total + torch.sum(loss_fn(lp, y[start : start + block]) * weights[start : start + block])
     return total
 
@@ -274,6 +290,12 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     B = config.batch_size
     hybrid = isinstance(x, HybridCSR)
     kernels = config.use_tail_kernel
+    # K3 bound once for the step's blocks (its checks run here, not a call)
+    fwd = None
+    if kernels and hybrid and x.blk_tail is not None and x.blk_tail.batch == B and x.blk_tail.device.type == "cuda":
+        if x.blk_tail.n_cols != x.n_cols or tuple(y.shape) != (x.blk_tail.n_blocks * B, family.n_classes):
+            raise ValueError("the BlockCOO tail does not match the design and the response")
+        fwd = tail_kernel.ForwardLauncher(x.blk_tail, family.n_classes, y.dtype)
 
     def step_pallas(state: SagaState, scal: _Scalars, sel):
         # K2 takes the FULL head and the block start, and lp_extra carries
@@ -282,15 +304,16 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         yb = _rows(y, sel, B)
         wb = _rows(weights, sel, B)
         g_mem_b = _rows(state.g_mem, sel, B)
+        offs_b = None if offs is None else _rows(offs, sel, B)
         if hybrid:
             d = x.n_head
-            lp_extra = _tail_predict(x, state.w, sel, B, kernels) + state.intercept
+            lp_extra = _tail_predict(x, state.w, sel, B, kernels, fwd, intercept=state.intercept, offs=offs_b)
             head, w_head = x.head, state.w[:, :d]
         else:
             lp_extra = state.intercept.expand(B, family.n_classes)
             head, w_head = x, state.w
-        if offs is not None:
-            lp_extra = lp_extra + _rows(offs, sel, B)
+            if offs_b is not None:
+                lp_extra = lp_extra + offs_b
         if xc is not None:
             lp_extra = lp_extra - state.w @ xc.to(state.w.dtype)
         g, corr_head = head_kernel.fused_head_step_at(head, sel, w_head, lp_extra, yb, g_mem_b, wb, family.name)
@@ -309,9 +332,8 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     def step_xla(state: SagaState, scal: _Scalars, sel):
         yb = _rows(y, sel, B)
         wb = _rows(weights, sel, B)
-        lp = _batch_predict(x, xc, state.w, sel, B, kernels) + state.intercept
-        if offs is not None:
-            lp = lp + _rows(offs, sel, B)
+        lp = _linear_predictor(x, xc, state.w, state.intercept, None if offs is None else _rows(offs, sel, B), sel,
+                               B, kernels, fwd)
         g = family.gradient(lp, yb) * wb[:, None]  # weighted; pad rows -> 0
         g_change = g - _rows(state.g_mem, sel, B)  # (B, k)
         _set_rows(state.g_mem, sel, g, B)
@@ -345,7 +367,11 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
             g_sum_i = state.g_sum_intercept
         return SagaState(w_new, intercept, state.g_mem, g_sum, g_sum_i)
 
-    return step_pallas if uses_head_kernel(x, family, config) else step_xla
+    step = step_pallas if uses_head_kernel(x, family, config) else step_xla
+    #: the bound K3 launcher (None off the card's BlockCOO path): the epoch
+    #: reads its stream once
+    step.tail_forward = fwd
+    return step
 
 
 def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None) -> SagaState:
@@ -374,6 +400,8 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
     def epoch(state: SagaState, order, gamma, l1, l2, it=None) -> SagaState:
         scal = _scalars(gamma, l1, l2, config.intercept_decay, dt)
         state = state._replace(g_mem=state.g_mem.clone())
+        if step.tail_forward is not None:
+            step.tail_forward.refresh_stream()
         if config.sampling == "block":
             # contiguous blocks in random order (rows pre-shuffled by fit())
             sels = [int(s) * B for s in order.tolist()]

@@ -5,13 +5,22 @@ Pallas probes they replace are tools/bench_pallas_gather.py:80, 100, 116,
 
 For block `blk` of a BlockCOO tail `bt` (core/sparse.py):
 
-    coo_tail_forward(bt, blk, w (k, p))  -> (B, k):  out[rows[e]] += vals[e] * w[:, cols[e]]
+    coo_tail_forward(bt, blk, w (k, p), base=None, intercept=None, offs=None) -> (B, k):
+        out[rows[e]] += vals[e] * w[:, cols[e]], then ((base + out) + intercept) + offs
     coo_tail_outer(bt, blk, gc (B, k))   -> (k, p):  corr[:, cols[e]] += vals[e] * gc[rows[e]]
 
-On CUDA tensors each launches its hand-written kernel (csrc/coo_tail.cu,
-f32 or f64); on CPU tensors each runs its plain torch version, the JAX
+K3's optional `base` (B, k), `intercept` (k,) and `offs` (B, k) assemble
+the step's linear predictor in the kernel's launch, each add in the JAX
+order of `_batch_predict` and the step.  On CUDA tensors each launches its
+hand-written kernel (csrc/coo_tail.cu, f32 or f64) after checking every
+operand; on CPU tensors each runs its plain torch version, the JAX
 package's scatter-add over all E entries of the block.  Nothing falls
 back: a CUDA input the kernel does not take raises.
+
+`ForwardLauncher` is K3 for the step's hot loop: bound once to a BlockCOO
+(its per-block addresses and lanes a row, computed when it was packed), a
+class count and a dtype, with those checks made then; `refresh_stream`
+reads the stream (once an epoch), and a call is an allocation and a launch.
 """
 
 from __future__ import annotations
@@ -24,11 +33,24 @@ from sgdnet_tpu_torch.utils import build
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def coo_tail_forward_reference(bt, blk: int, w: torch.Tensor) -> torch.Tensor:
-    """Plain torch K3: gather w at the block's columns, scatter-add into its rows."""
+def add_epilogue(out, base=None, intercept=None, offs=None):
+    """((base + out) + intercept) + offs, each add only where given."""
+    if base is not None:
+        out = base + out
+    if intercept is not None:
+        out = out + intercept
+    if offs is not None:
+        out = out + offs
+    return out
+
+
+def coo_tail_forward_reference(bt, blk: int, w: torch.Tensor, base=None, intercept=None, offs=None) -> torch.Tensor:
+    """Plain torch K3: gather w at the block's columns, scatter-add into its
+    rows, then the epilogue's adds."""
     r, c, v = bt.rows[blk].long(), bt.cols[blk].long(), bt.vals[blk]
     contrib = v[:, None].to(w.dtype) * w.T[c]  # (E, k)
-    return torch.zeros((bt.batch, w.shape[0]), dtype=w.dtype, device=w.device).index_add_(0, r, contrib)
+    out = torch.zeros((bt.batch, w.shape[0]), dtype=w.dtype, device=w.device).index_add_(0, r, contrib)
+    return add_epilogue(out, base, intercept, offs)
 
 
 def coo_tail_outer_reference(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
@@ -50,23 +72,54 @@ def _check(bt, blk: int, t: torch.Tensor, shape, what: str) -> None:
         raise ValueError(f"{what}: block {blk} outside the tail's {len(bt.addr)} blocks")
 
 
-def coo_tail_forward(bt, blk: int, w: torch.Tensor) -> torch.Tensor:
-    """K3: the tail's part of the block's linear predictors, (B, k).  The
-    block's views go to the kernel by the addresses the BlockCOO computed
-    when it was packed: no tensor is indexed here."""
+class ForwardLauncher:
+    """K3 bound to the BlockCOO `bt`, `k` classes and `dtype` on the card:
+    the tail's dtype, device and lanes are checked here, once; a call
+    `launcher(blk, w, base, intercept, offs)` takes operands of the bound
+    shapes (w (k, p), base and offs (B, k), intercept (k,), contiguous, of
+    `dtype`, on the tail's device: the step that binds it builds them so)
+    and checks nothing.  It launches on the stream `refresh_stream` last
+    read."""
+
+    def __init__(self, bt, k: int, dtype: torch.dtype):
+        if dtype not in _DTYPE_CODE or bt.dtype != dtype or bt.device.type != "cuda":
+            raise ValueError(f"coo_tail_forward: takes an f32/f64 BlockCOO on the card of the operands' dtype; got "
+                             f"{bt.dtype} on {bt.device} for {dtype} operands")
+        self.shape, self.dtype, self.device = (bt.batch, k), dtype, bt.device
+        self.args = (_DTYPE_CODE[dtype], bt.batch, k, bt.n_cols, bt.lanes)
+        self.blocks = [a[:3] for a in bt.addr]  # row_ptr, cols, vals of each block
+        self.fn = build.load_library().sgd_coo_tail_forward
+        self.refresh_stream()
+
+    def refresh_stream(self) -> None:
+        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+
+    def __call__(self, blk: int, w, base=None, intercept=None, offs=None) -> torch.Tensor:
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        code = self.fn(*self.blocks[blk], w.data_ptr(), *self.args, 0 if base is None else base.data_ptr(),
+                       0 if intercept is None else intercept.data_ptr(), 0 if offs is None else offs.data_ptr(),
+                       out.data_ptr(), self.stream)
+        if code:
+            build.check(code, "coo_tail_forward")
+        coo_tail_forward.launches += 1
+        return out
+
+
+def coo_tail_forward(bt, blk: int, w: torch.Tensor, base=None, intercept=None, offs=None) -> torch.Tensor:
+    """K3: the tail's part of the block's linear predictors, (B, k), with
+    the optional epilogue ((base + tail) + intercept) + offs.  On the card
+    every operand is checked, then the kernel launches through a
+    `ForwardLauncher` (the block's views go by the addresses the BlockCOO
+    computed when it was packed: no tensor is indexed here)."""
     if not w.is_cuda:
-        return coo_tail_forward_reference(bt, blk, w)
+        return coo_tail_forward_reference(bt, blk, w, base, intercept, offs)
     k = w.shape[0]
     _check(bt, blk, w, (k, bt.n_cols), "coo_tail_forward")
-    out = torch.empty((bt.batch, k), dtype=w.dtype, device=w.device)
-    row_ptr, cols, vals = bt.addr[blk][:3]
-    code = build.load_library().sgd_coo_tail_forward(
-        row_ptr, cols, vals, w.data_ptr(), _DTYPE_CODE[w.dtype], bt.batch, k, bt.n_cols, out.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream,
-    )
-    build.check(code, "coo_tail_forward")
-    coo_tail_forward.launches += 1
-    return out
+    for t, shape, name in ((base, (bt.batch, k), "base"), (intercept, (k,), "intercept"),
+                           (offs, (bt.batch, k), "offs")):
+        if t is not None:
+            _check(bt, blk, t, shape, f"coo_tail_forward {name}")
+    return ForwardLauncher(bt, k, w.dtype)(blk, w, base, intercept, offs)
 
 
 def coo_tail_outer(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:

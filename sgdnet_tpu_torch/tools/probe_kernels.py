@@ -3,7 +3,8 @@ plain torch twins and launch counters.
 
   * `epoch_probe` (P1, twin of tools/bench_epoch_kernel.py `run_pallas`):
     one gaussian SAGA epoch of the single-block prototype of K1, state
-    updated in place;
+    updated in place, on K1's design (a ring of prefetched blocks in shared
+    memory, the launch shape of K1's `plan`: `epoch_probe_plan`);
   * `block_colsum` (P2, twin of tools/bench_pallas_dma.py `mk_reduce`): f32
     column sums of rows [start, start + B) of a bf16 head, in bt-row tiles;
   * `block_colsum_pipelined` (P3, twin of tools/bench_dma_streams.py `mk`):
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver.epoch_kernel import SMEM_LIMIT
 from sgdnet_tpu_torch.utils import build
 
@@ -54,6 +56,29 @@ def epoch_probe_reference(starts, x, y, wt, w, g_mem, g_sum, batch: int):
     return w, g_mem, g_sum
 
 
+def epoch_probe_smem_floats(B: int, P: int, stages: int, groups: int) -> int:
+    """P1's shared memory in floats: csrc/probes.cu `p1_smem_floats`, the
+    same expression (the ring's slots of x, y and wt, w, g_sum, gc, the
+    column groups' partials, the ring of 8 starts)."""
+    return stages * (B * P + 2 * B) + 2 * P + B + (groups > 1) * groups * P + 8
+
+
+def epoch_probe_plan(P: int, batch: int) -> tuple[int, int, int, int]:
+    """P1's launch, (threads, lanes a row, column groups, ring stages): the
+    lane mapping of K1's `plan` at (p = P, k = 1, B = batch), and the deepest
+    ring (3, else 2 stages) that fits one CTA's shared memory.  Raises for
+    shapes the kernel does not take (P not a multiple of 4, an odd batch,
+    more than RMAX rows a row slot, no ring that fits)."""
+    if P % 4 or batch < 2 or batch % 2:
+        raise ValueError(f"epoch_probe: P={P} must be a multiple of 4 and batch={batch} even")
+    pl = ek.plan(P, 1, batch)
+    if pl.rows <= ek.RMAX:
+        for stages in (3, 2):
+            if 4 * epoch_probe_smem_floats(batch, P, stages, pl.groups) <= SMEM_LIMIT:
+                return pl.threads, pl.lanes, pl.groups, stages
+    raise ValueError(f"epoch_probe: no ring of blocks fits one CTA at P={P}, batch={batch}")
+
+
 def epoch_probe(starts, x, y, wt, w, g_mem, g_sum, batch: int):
     """P1: one epoch over `starts` (T block starts), x (N, P), y / wt / g_mem
     (N, 8), w / g_sum (8, P), f32; lane / row 0 is the model.  Updates w,
@@ -69,11 +94,13 @@ def epoch_probe(starts, x, y, wt, w, g_mem, g_sum, batch: int):
             raise ValueError(f"epoch_probe: {name} must be a contiguous f32 {shape} tensor on {dev}")
     if starts.dtype != torch.int32 or starts.device != dev or starts.ndim != 1 or not starts.is_contiguous():
         raise ValueError(f"epoch_probe: starts must be a contiguous int32 vector on {dev}")
-    if batch < 1 or N % batch != 0 or 4 * (2 * P + batch) > SMEM_LIMIT:
-        raise ValueError(f"epoch_probe: unsupported N={N}, P={P}, batch={batch}")
+    if batch < 1 or N % batch != 0 or x.data_ptr() % 16:
+        raise ValueError(f"epoch_probe: unsupported N={N}, batch={batch} (or x not on 16 bytes)")
+    threads, lanes, groups, stages = epoch_probe_plan(P, batch)
     code = build.load_library().sgd_epoch_probe(
         starts.data_ptr(), starts.shape[0], batch, x.data_ptr(), P, N, y.data_ptr(), wt.data_ptr(),
-        w.data_ptr(), g_mem.data_ptr(), g_sum.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        w.data_ptr(), g_mem.data_ptr(), g_sum.data_ptr(), threads, lanes, groups, stages,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(code, "epoch_probe")
     epoch_probe.launches += 1

@@ -13,9 +13,10 @@ one epoch at 1e-5 x scale, a chunk of epochs (every variant) at 1e-4 x
 scale with the twin's epoch count and stop flag, bit-identical across two
 runs; K3 / K4
 at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
-across two runs; fits through a kernel vs the plain step path on the card
-at 1e-4 x scale; the probes P1 at 1e-5 x max and bit-identical across two
-runs, P2 / P3 within 1e-6 x sum |x| per column, P2 bit-identical.
+across two runs, K3 at every lane count with and without its epilogue;
+fits through a kernel vs the plain step path on the card at 1e-4 x scale;
+the probes P1 at 1e-5 x max and bit-identical across two runs, P2 / P3
+within 1e-6 x sum |x| per column, P2 bit-identical.
 """
 
 import numpy as np
@@ -321,6 +322,54 @@ def test_tail_kernels_reject_what_they_do_not_take(dev):
         tk.coo_tail_outer(bt, 0, torch.zeros((bt.batch + 1, 1), device=dev))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_tail_forward_at_each_lane_count(dev, dtype, G):
+    """K3 with G lanes a row (forced on a copy of the tail), with and
+    without its epilogue, at k 1, 3 and 10, against its plain version
+    (1e-5 relative at f32, 1e-12 at f64), identical bits over two runs;
+    the bound launcher the step uses gives the checked call's bits."""
+    import dataclasses
+
+    bt = dataclasses.replace(_zipf_tail(dev, dtype, per_row=40 if G >= 16 else 9))
+    bt.lanes = G
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for k in (1, 3, 10):
+        rng = np.random.default_rng(G * k)
+        t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+        w = t(rng.normal(size=(k, bt.n_cols)))
+        ops = dict(base=t(rng.normal(size=(bt.batch, k))), intercept=t(rng.normal(size=k)),
+                   offs=t(rng.normal(size=(bt.batch, k))))
+        launcher = tk.ForwardLauncher(bt, k, dtype)
+        for given in ({}, ops, {"intercept": ops["intercept"]}):
+            for blk in range(bt.n_blocks):
+                before = tk.coo_tail_forward.launches
+                f = tk.coo_tail_forward(bt, blk, w, **given)
+                assert tk.coo_tail_forward.launches == before + 1
+                ref = tk.coo_tail_forward_reference(bt, blk, w, **given)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(f, ref, atol=tol * max(1.0, float(ref.abs().max())), rtol=0)
+                assert torch.equal(f, tk.coo_tail_forward(bt, blk, w, **given))
+                assert torch.equal(f, launcher(blk, w, **given))
+
+
+def test_tail_forward_rejects_what_it_does_not_take(dev):
+    bt = _zipf_tail(dev, torch.float32, n=2048)
+    w = torch.zeros((2, bt.n_cols), device=dev)
+    bad = {"base": torch.zeros((bt.batch, 3), device=dev), "intercept": torch.zeros(3, device=dev),
+           "offs": torch.zeros((bt.batch, 2), dtype=torch.float64, device=dev)}
+    for name, t in bad.items():
+        with pytest.raises(ValueError):
+            tk.coo_tail_forward(bt, 0, w, **{name: t})
+    with pytest.raises(ValueError):
+        tk.coo_tail_forward(bt, 0, w, offs=torch.zeros((2, bt.batch), device=dev).T)  # not contiguous
+    with pytest.raises(ValueError):
+        tk.ForwardLauncher(bt, 2, torch.float64)  # the tail is f32
+    with pytest.raises(ValueError):
+        tk.ForwardLauncher(BlockCOO.from_padded(PaddedCSR.from_scipy(sp.random(64, 30, 0.2, format="csr"),
+                                                                     device="cpu"), 32), 1, torch.float32)
+
+
 @pytest.mark.parametrize("head", ["bfloat16", "int8", "float32"])
 def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     """A hybrid fit on the card through K3 / K4 (and K2 on a bf16 / f32
@@ -356,10 +405,11 @@ def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,p,batch", [(512, 32, 32), (4224, 128, 32)])
+@pytest.mark.parametrize("n,p,batch", [(512, 32, 32), (4224, 128, 32), (1024, 64, 16), (4096, 8, 1024)])
 def test_epoch_probe_matches_twin(dev, n, p, batch):
     """P1 two epochs against its twin at 1e-5 of each array's max (f32 sums
-    in another order), and identical bits over two launches."""
+    in another order), and identical bits over two launches: one warp, many
+    warps with one and with many column groups, two rows a row slot."""
     rng = np.random.default_rng(n)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
     x, y, wt = t(rng.normal(size=(n, p))), t(rng.normal(size=(n, 8))), t(rng.uniform(0.5, 1.5, (n, 8)))

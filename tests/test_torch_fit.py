@@ -164,3 +164,201 @@ def test_warm_state_roundtrip(tmp_path):
     scale = max(1.0, np.abs(fj2.beta).max())
     np.testing.assert_allclose(ft2.beta, fj2.beta, atol=1e-3 * scale)
     np.testing.assert_allclose(ft2.a0, fj2.a0, atol=1e-3 * max(1.0, np.abs(fj2.a0).max()))
+
+
+# ---------------------------------------------------------------------------
+# prebuilt layouts: fit(x=PaddedCSR | HybridCSR) and predict(newx=...)
+# ---------------------------------------------------------------------------
+#
+# Both packages take a layout their user built.  The port's is carried over
+# from the JAX package's with utils/convert.layout_from_jax, so the two fits
+# start from the same arrays.
+
+
+def _padded_problem():
+    import scipy.sparse as sp
+    from sgdnet_tpu.core.sparse import PaddedCSR as JPaddedCSR
+
+    from helpers import random_data
+
+    x, y = random_data(n=100, p=6, density=0.4, seed=1)
+    return sp.csr_matrix(x), y, JPaddedCSR.from_scipy(sp.csr_matrix(x), dtype=np.float64)
+
+
+def test_fit_accepts_padded_csr_directly(monkeypatch):
+    """Twin of tests/test_edge_cases.py::test_fit_accepts_padded_csr_directly:
+    the port's fit on a prebuilt PaddedCSR is its fit on the same scipy
+    matrix (the reference test's 1e-10).  Against the JAX package's fit of
+    the same layout, with the JAX fit's batch orders, the two differ by
+    their power iterations' step sizes and the order of their sums: 1e-6 x
+    scale (measured 1.4e-7)."""
+    from sgdnet_tpu_torch.solver import saga as tsaga
+    from sgdnet_tpu_torch.utils.convert import layout_from_jax
+
+    xs, y, jcsr = _padded_problem()
+    kw = dict(nlambda=5, dtype=np.float64)
+    tcsr = layout_from_jax(jcsr)
+    ft = tst.fit(tcsr, y, device="cpu", **kw)
+    f_scipy = tst.fit(xs, y, hybrid=False, device="cpu", **kw)
+    np.testing.assert_allclose(ft.beta, f_scipy.beta, atol=1e-10)
+    assert ft.stats["layout"] == {"kind": "padded_csr", "row_width": tcsr.row_width}
+    fj = jst.fit(jcsr, y, **kw)
+    from test_torch_solver import ReferenceOrders
+
+    # the port's default sampler replaced by the JAX fit's orders
+    monkeypatch.setattr(tsaga, "default_order_fn", lambda seed, n: ReferenceOrders(seed, n, 1000))
+    fl = tst.fit(tcsr, y, device="cpu", **kw)
+    assert fl.npasses == fj.npasses and (fl.return_codes == fj.return_codes).all()
+    scale = max(1.0, np.abs(fj.beta).max())
+    np.testing.assert_allclose(fl.beta, fj.beta, atol=1e-6 * scale)
+    np.testing.assert_allclose(fl.a0, np.asarray(fj.a0), atol=1e-6 * max(1.0, np.abs(fj.a0).max()))
+
+
+def test_prebuilt_hybrid_keeps_its_column_order():
+    """A prebuilt f64 HybridCSR: the port's fit returns coefficients in the
+    layout's column order, as the JAX package's does (the port's fit of the
+    scipy matrix, permuted, to 1e-10: the same layout), and meets the JAX
+    fit of the same layout at the solution (1e-3 x scale, at thresh 1e-5;
+    measured 1.8e-4)."""
+    import scipy.sparse as sp
+    from sgdnet_tpu.core.sparse import HybridCSR as JHybridCSR
+
+    from helpers import random_data
+    from sgdnet_tpu_torch.utils.convert import layout_from_jax
+
+    x, y = random_data(n=300, p=40, family="binomial", density=0.3, seed=11)
+    jh, perm = JHybridCSR.split_columns(sp.csr_matrix(x), coverage=0.8, max_head=16, dtype=np.float64)
+    kw = dict(family="binomial", alpha=0.5, nlambda=4, lambda_min_ratio=0.1, batch_size=32, thresh=1e-5,
+              maxit=5000, dtype=np.float64)
+    fj = jst.fit(jh, y, **kw)
+    ft = tst.fit(layout_from_jax(jh), y, device="cpu", **kw)
+    assert ft.stats["layout"]["kind"] == "hybrid" and ft.stats["layout"]["head_width"] == jh.n_head
+    scale = max(1.0, np.abs(fj.beta).max())
+    np.testing.assert_allclose(ft.beta, fj.beta, atol=1e-3 * scale)
+    # and it is the scipy fit's, permuted
+    fs = tst.fit(sp.csr_matrix(x), y, hybrid=True, hybrid_coverage=0.8, hybrid_max_head=16, device="cpu", **kw)
+    np.testing.assert_allclose(ft.beta[:, :, np.argsort(perm)], fs.beta, atol=1e-10)
+
+
+def _binomial_objective(f, x, y, alpha, sd):
+    """Per-lambda penalized objective of a binomial fit on the original
+    data: mean log-loss + lambda (alpha |b sd|_1 + (1 - alpha) / 2 |b sd|^2)."""
+    b = f.beta[:, 0, :] * sd[None, :]
+    lp = np.asarray(x @ f.beta[:, 0, :].T) + np.asarray(f.a0)[None, :]
+    loss = np.mean(np.logaddexp(0.0, lp) - y[:, None] * lp, axis=0)
+    return loss + f.lambda_ * (alpha * np.abs(b).sum(axis=1) + 0.5 * (1 - alpha) * (b * b).sum(axis=1))
+
+
+def test_prebuilt_f32_hybrid_quantized_on_the_device():
+    """Twin of tests/test_perf_modes.py::test_int8_host_vs_device_path_fit_agrees:
+    a prebuilt f32 HybridCSR with hybrid_head_dtype="int8" is standardized,
+    then quantized on the device.  Against the host int8 ingestion of the
+    same scipy matrix at the reference test's 1e-2 x scale; against the JAX
+    package's device path on the same layout at the trajectory-insensitive
+    contract (ROADMAP Queue 3), the penalized objective per lambda: within
+    5e-3 relative, as each fit stops within thresh (1e-3) of its own
+    trajectory's solution (measured 1.8e-3)."""
+    import jax.numpy as jnp
+    import scipy.sparse as sp
+    from sgdnet_tpu.core.sparse import HybridCSR as JHybridCSR
+
+    from helpers import pop_sd, random_data
+    from sgdnet_tpu_torch.utils.convert import layout_from_jax
+
+    x, y = random_data(n=400, p=64, family="binomial", density=0.3, seed=29)
+    xs = sp.csr_matrix(x)
+    kw = dict(family="binomial", alpha=0.5, batch_size=32, seed=7, dtype=np.float32, hybrid_head_dtype="int8")
+    host = tst.fit(xs, y, nlambda=6, hybrid=True, hybrid_max_head=32, hybrid_coverage=0.8, device="cpu", **kw)
+    assert host.stats["layout"]["head_dtype"] == "torch.int8"
+    jh, perm = JHybridCSR.split_columns(xs, coverage=0.8, max_head=32, dtype=jnp.float32)
+    th = layout_from_jax(jh)
+    dev = tst.fit(th, y, lambda_path=host.lambda_, device="cpu", **kw)
+    assert dev.stats["layout"]["head_dtype"] == "torch.int8" and th.head.dtype == torch.float32  # not in place
+    beta_dev = np.empty_like(dev.beta)
+    beta_dev[:, :, perm] = dev.beta  # prebuilt layouts return permuted columns
+    np.testing.assert_allclose(host.beta, beta_dev, atol=1e-2 * max(np.abs(host.beta).max(), 1.0))
+    fj = jst.fit(jh, y, lambda_path=host.lambda_, **kw)
+    xp = x[:, perm]
+    sd = pop_sd(xp)
+    oj, ot = _binomial_objective(fj, xp, y, 0.5, sd), _binomial_objective(dev, xp, y, 0.5, sd)
+    np.testing.assert_allclose(ot, oj, rtol=5e-3)
+
+
+def test_malformed_layout_raises_as_scipy_input():
+    """A NaN in a prebuilt layout raises the error a NaN in scipy input
+    raises; rows that do not match y raise as scipy input does; a row with
+    a repeated column is summed as canonical_csr sums scipy duplicates, and
+    a layout whose parts disagree raises."""
+    import scipy.sparse as sp
+
+    from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
+
+    xs, y, _ = _padded_problem()
+    kw = dict(nlambda=3, dtype=np.float64, device="cpu")
+    bad = xs.copy()
+    bad.data[3] = np.nan
+    for arg in (bad, PaddedCSR.from_scipy(bad, dtype=torch.float64, device="cpu")):
+        with pytest.raises(ValueError, match="NA values are not allowed"):
+            tst.fit(arg, y, **kw)
+    for arg in (xs, PaddedCSR.from_scipy(xs, dtype=torch.float64, device="cpu")):
+        with pytest.raises(ValueError, match="the number of samples in 'x' and 'y' must match"):
+            tst.fit(arg, y[:-1], **kw)
+    hb, _ = HybridCSR.split_columns(bad, coverage=0.5, max_head=2, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="NA values are not allowed"):
+        tst.fit(hb, y, **kw)
+    # duplicates: the same (row, column) twice, summed by scipy and by the fit
+    coo = xs.tocoo()
+    dup = sp.csr_matrix((np.r_[coo.data, 0.5], (np.r_[coo.row, coo.row[0]], np.r_[coo.col, coo.col[0]])),
+                        shape=xs.shape)
+    dup.has_canonical_format = False
+    raw = PaddedCSR.from_scipy(sp.csr_matrix(xs), dtype=torch.float64, device="cpu")
+    r0, L = int(coo.row[0]), raw.row_width
+    nnz0 = int(raw.nnz[r0])
+    if nnz0 == L:  # room for one more entry in row r0
+        raw = PaddedCSR(torch.cat([raw.indices, torch.zeros((raw.n_rows, 8), dtype=raw.indices.dtype)], 1),
+                        torch.cat([raw.values, torch.zeros((raw.n_rows, 8), dtype=raw.values.dtype)], 1),
+                        raw.nnz, raw.n_rows, raw.n_cols)
+    raw.indices[r0, nnz0], raw.values[r0, nnz0] = int(coo.col[0]), 0.5
+    raw.nnz[r0] += 1
+    fd, fs = tst.fit(raw, y, **kw), tst.fit(dup, y, hybrid=False, **kw)
+    np.testing.assert_allclose(fd.beta, fs.beta, atol=1e-10)
+    with pytest.raises(ValueError, match="pad entries"):
+        broken = PaddedCSR(raw.indices.clone(), raw.values.clone(), raw.nnz, raw.n_rows, raw.n_cols)
+        broken.values[0, -1] = 1.0
+        tst.fit(broken, y, **kw)
+    with pytest.raises(ValueError, match="do not match its shape"):
+        h, _ = HybridCSR.split_columns(xs, coverage=0.5, max_head=2, dtype=torch.float64, device="cpu")
+        tst.fit(HybridCSR(h.head[:-1], h.tail, h.n_rows, h.n_cols), y, **kw)
+
+
+def test_padded_csr_newx_no_densify():
+    """Twin of tests/test_predictions.py::test_padded_csr_newx_no_densify:
+    predict takes a PaddedCSR / HybridCSR newx (the layout's product, class
+    by class, never densified) and gives the dense prediction, on a JAX fit
+    converted to the port, as the JAX package predicts it (1e-8, the
+    reference test's bound)."""
+    import scipy.sparse as sp
+    from sgdnet_tpu.core.sparse import HybridCSR as JHybridCSR
+    from sgdnet_tpu.core.sparse import PaddedCSR as JPaddedCSR
+
+    from helpers import random_data
+    from sgdnet_tpu_torch.utils.convert import layout_from_jax
+
+    x, y = random_data(n=150, p=12, family="gaussian", density=0.3, seed=34)
+    fj = jst.fit(x, y, nlambda=6, dtype=np.float64)
+    ft = _converted(fj)
+    dense = ft.predict(x)
+    jcsr = JPaddedCSR.from_scipy(sp.csr_matrix(x), dtype=np.float64)
+    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr)), dense, rtol=1e-8)
+    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr)), fj.predict(jcsr), rtol=1e-8)
+    # a HybridCSR newx predicts in its own column order
+    jh, perm = JHybridCSR.split_columns(sp.csr_matrix(x), coverage=0.6, max_head=4, dtype=np.float64)
+    fp = _converted(fj)
+    fp.beta = fj.beta[:, :, perm]
+    np.testing.assert_allclose(fp.predict(layout_from_jax(jh)), dense, rtol=1e-8)
+    # multinomial: class by class
+    xw, yw = tst.load_wine()
+    fjw = _jax_fit("wine")[3]
+    jw = JPaddedCSR.from_scipy(sp.csr_matrix(xw[:30]), dtype=np.float64)
+    np.testing.assert_allclose(_converted(fjw).predict(layout_from_jax(jw), type="response"),
+                               fjw.predict(xw[:30], type="response"), rtol=1e-8)

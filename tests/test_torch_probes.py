@@ -10,8 +10,10 @@
     the TPU bodies (`reduce_kernel`, `kernel`: closures inside the tools'
     `main`, so they cannot be imported) in interpret mode at n_pad 256,
     D 256, B 64: within 1e-6 x sum |x| per column;
-  * the CUDA kernels' summation orders replayed in numpy (P2's tiles, P3's
-    strips, thread groups and ring), and P3's strip-width choice;
+  * the CUDA kernels' summation orders replayed in numpy (P1's lanes and
+    column groups, P2's tiles, P3's strips, thread groups and ring), P1's
+    launch plan (K1's lane mapping) and shared-memory expression, and P3's
+    strip-width choice;
   * each probe entry point end to end on device="cpu" at a tiny size, and
     device=None raising without a card.
 """
@@ -99,6 +101,97 @@ def test_p1_twin_matches_pallas_and_xla(seed):
         np.testing.assert_allclose(t[model], b[model], rtol=0, atol=1e-5 * np.abs(b[model]).max(), err_msg=name)
         np.testing.assert_array_equal(t[rest], init[rest], err_msg=name)
         np.testing.assert_array_equal(a[rest], init[rest], err_msg=name)
+
+
+def _p1_kernel_epoch(starts, x, y, wt, w, gm, gs, B, lanes, groups):
+    """P1's kernel order in f32 numpy: a row's L lanes each sum the
+    16-byte chunks 4q, 4q + 4L, ... (four FMAs a chunk), the lane sums meet
+    in the xor butterfly; the column phase sums rows gi, gi + groups, ...
+    of each group (with groups 1: four interleaved sums, added pairwise),
+    then the groups in order; one reciprocal of B and of N multiplied in."""
+    f = np.float32
+    N, P = x.shape
+    shrink, thr = f(1) - pk.GAMMA * pk.L2, pk.GAMMA * pk.L1
+    inv_b, inv_n = f(1) / f(B), f(1) / f(N)
+    for s in starts:
+        xb = x[s : s + B]
+        gc = np.zeros(B, f)
+        for b in range(B):
+            lanes_acc = np.zeros(lanes, f)
+            for q in range(lanes):
+                for j in range(4 * q, P, 4 * lanes):
+                    for u in range(4):
+                        lanes_acc[q] = f(lanes_acc[q] + xb[b, j + u] * w[0, j + u])
+            o = lanes // 2
+            while o:
+                lanes_acc = lanes_acc + lanes_acc[np.arange(lanes) ^ o]
+                o //= 2
+            g = (lanes_acc[0] - y[s + b, 0]) * wt[s + b, 0]
+            gc[b] = g - gm[s + b, 0]
+            gm[s + b, 0] = g
+        if groups == 1:
+            acc = np.zeros((4, P), f)
+            for b in range(B - B % 4):
+                acc[b % 4] += gc[b] * xb[b]
+            for b in range(B - B % 4, B):
+                acc[0] += gc[b] * xb[b]
+            corr = (acc[0] + acc[1]) + (acc[2] + acc[3])
+        else:
+            parts = [np.zeros(P, f) for _ in range(groups)]
+            for gi in range(groups):
+                for b in range(gi, B, groups):
+                    parts[gi] += gc[b] * xb[b]
+            corr = np.zeros(P, f)
+            for gi in range(groups):
+                corr += parts[gi]
+        wh = w[0] * shrink - pk.GAMMA * (corr * inv_b + gs[0])
+        w[0] = np.sign(wh) * np.maximum(np.abs(wh) - thr, f(0))
+        gs[0] += corr * inv_n
+    return w, gm, gs
+
+
+@pytest.mark.parametrize("P,B", [(128, 32), (16, 32), (64, 16)])
+def test_p1_kernel_order_matches_twin(P, B):
+    """The redesigned P1's summation order (at the lanes and column groups
+    `epoch_probe_plan` picks) gives its twin's epoch within 1e-5 of each
+    array's max."""
+    N = 8 * B
+    threads, lanes, groups, stages = pk.epoch_probe_plan(P, B)
+    rng = np.random.default_rng(P + B)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    x, y, wt = f32(N, P), f32(N, 8), rng.uniform(0.5, 1.5, (N, 8)).astype(np.float32)
+    init = (0.1 * f32(8, P), 0.1 * f32(N, 8), 0.01 * f32(8, P))
+    starts = rng.permutation(N // B) * B
+    k = _p1_kernel_epoch(starts, x, y, wt, *(a.copy() for a in init), B, lanes, groups)
+    t = pk.epoch_probe_reference(torch.tensor(starts), torch.tensor(x), torch.tensor(y), torch.tensor(wt),
+                                 *(torch.tensor(a.copy()) for a in init), B)
+    for a, b in zip(k, t):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=1e-5 * np.abs(b.numpy()).max())
+
+
+def test_p1_plan_is_k1s_lane_mapping():
+    """P1 launches with K1's threads, lanes a row and column groups, the
+    deepest ring that fits by the .cu file's shared-memory expression
+    (evaluated here), and refuses shapes its ring cannot take."""
+    import re
+
+    from sgdnet_tpu_torch.solver import epoch_kernel as ek
+
+    src = open(os.path.join(ROOT, "sgdnet_tpu_torch", "csrc", "probes.cu")).read()
+    expr = " ".join(re.search(r"/\* SMEM-FORMULA \*/(.*?)/\* END-FORMULA \*/", src, re.S).group(1).split())
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        v = dict(B=2 * int(rng.integers(1, 600)), P=4 * int(rng.integers(1, 900)), stages=int(rng.choice([2, 3])),
+                 groups=int(rng.integers(1, 40)))
+        assert eval(expr, {}, dict(v)) == pk.epoch_probe_smem_floats(v["B"], v["P"], v["stages"], v["groups"])
+    assert pk.epoch_probe_plan(128, 32) == (256, 8, 2, 3)  # the probe's shape: 8 warps, 8 lanes a row
+    assert pk.epoch_probe_plan(32, 32) == (32, 1, 1, 3)  # one warp
+    for P, B in ((128, 32), (64, 16), (8, 1024), (512, 32)):
+        pl = ek.plan(P, 1, B)
+        assert pk.epoch_probe_plan(P, B)[:3] == (pl.threads, pl.lanes, pl.groups)
+    for P, B in ((130, 32), (128, 33), (2000, 32)):  # P % 4, an odd batch, no ring fits
+        with pytest.raises(ValueError):
+            pk.epoch_probe_plan(P, B)
 
 
 # ---------------------------------------------------------------------------

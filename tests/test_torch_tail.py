@@ -10,10 +10,20 @@
     they give the twins' sums (1e-12) and never read a pad entry, also on
     a block with a column heavier than HEAVY_LEN and on an empty block;
   * the views themselves, the per-block address table, and the wrappers'
-    CPU dispatch (no launch is counted).
+    CPU dispatch (no launch is counted);
+  * K3's epilogue: the plain version with base, intercept and offsets
+    against the JAX package's `_coo_batch_predict` followed by the same
+    adds in the same order, at k 1, 3 and 10 (1e-12 at f64), and the
+    step's linear predictor assembled by it against the unfused ops;
+  * K3's lane groups: the walk of G lanes a row (entries l, l + G, ... a
+    lane, then the xor butterfly) replayed in numpy at every G gives the
+    twin's sums, and G is the .cu file's formula of the tail's mean row
+    length (the expression between its markers, evaluated here).
 """
 
 import dataclasses
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +33,7 @@ import torch
 
 from sgdnet_tpu.core import sparse as jsparse
 from sgdnet_tpu.solver import saga as jsaga
-from sgdnet_tpu_torch.core.sparse import HEAVY_LEN, BlockCOO, PaddedCSR
+from sgdnet_tpu_torch.core.sparse import HEAVY_LEN, BlockCOO, HybridCSR, PaddedCSR, coo_lanes
 from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.utils.convert import layout_from_jax
 
@@ -203,3 +213,144 @@ def test_counts_recovered_from_pad_entries():
     assert b.rows_by_col[0, :3].tolist() == [1, 0, 1] and b.vals_by_col[0, :3].tolist() == [2.0, 1.0, 3.0]
     with pytest.raises(ValueError, match="ascend"):
         BlockCOO.from_arrays(np.array([[1, 0]], np.int32), np.array([[0, 1]], np.int32), np.ones((1, 2)), 2, 3)
+
+
+# ---------------------------------------------------------------------------
+# K3's epilogue and lane groups
+# ---------------------------------------------------------------------------
+
+EPILOGUES = {"none": (), "base": ("base",), "intercept_offs": ("intercept", "offs"),
+             "all": ("base", "intercept", "offs")}
+
+
+@pytest.mark.parametrize("which", list(EPILOGUES))
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_forward_epilogue_matches_jax(blocks, k, which):
+    """((base + tail) + intercept) + offs: the JAX package's tail forward
+    followed by the step's adds, in that order, against K3's plain version
+    with the same operands, 1e-12 at f64."""
+    jb, tb, _ = blocks
+    rng = np.random.default_rng(100 + k)
+    w = rng.normal(size=(k, jb.n_cols))
+    ops = {"base": rng.normal(size=(jb.batch, k)), "intercept": rng.normal(size=k),
+           "offs": rng.normal(size=(jb.batch, k))}
+    given = {name: ops[name] for name in EPILOGUES[which]}
+    for blk in range(tb.n_blocks):
+        ref = jsaga._coo_batch_predict(jb, jnp.asarray(w), blk, jb.batch)
+        if "base" in given:
+            ref = jnp.asarray(given["base"]) + ref
+        if "intercept" in given:
+            ref = ref + jnp.asarray(given["intercept"])
+        if "offs" in given:
+            ref = ref + jnp.asarray(given["offs"])
+        ref = np.asarray(ref)
+        out = tk.coo_tail_forward(tb, blk, torch.tensor(w), **{n: torch.tensor(v) for n, v in given.items()})
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12 * max(1.0, np.abs(ref).max()))
+
+
+def _walk_forward_lanes(tb, blk, w, G):
+    """K3's walk at G lanes a row: lane l of row r sums entries
+    row_ptr[r] + l, + l + G, ... in order, then the G lane sums meet in the
+    xor butterfly (offsets G/2, ..., 1), which leaves the same bits in
+    every lane of the group."""
+    B, k = tb.batch, w.shape[0]
+    rp, cols, vals = tb.row_ptr[blk].numpy(), tb.cols[blk].numpy(), tb.vals[blk].numpy()
+    out = np.zeros((B, k))
+    for r in range(B):
+        lanes = np.zeros((G, k))
+        for lane in range(G):
+            for e in range(rp[r] + lane, rp[r + 1], G):
+                lanes[lane] += vals[e] * w[:, cols[e]]
+        o = G // 2
+        while o:
+            lanes = lanes + lanes[np.arange(G) ^ o]
+            o //= 2
+        assert (lanes == lanes[0]).all()
+        out[r] = lanes[0]
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+def test_lane_group_walk_matches_twin(G):
+    tb = layout_from_jax(_tail(2)[0])  # a heavy column and an empty block
+    w = np.random.default_rng(G).normal(size=(3, tb.n_cols))
+    for blk in range(tb.n_blocks):
+        f = tk.coo_tail_forward_reference(tb, blk, torch.tensor(w)).numpy()
+        np.testing.assert_allclose(_walk_forward_lanes(tb, blk, w, G), f, rtol=0,
+                                   atol=1e-12 * max(1.0, np.abs(f).max()))
+
+
+CU = os.path.join(os.path.dirname(__file__), os.pardir, "sgdnet_tpu_torch", "csrc", "coo_tail.cu")
+
+
+def test_lanes_formula_is_the_cu_files():
+    """The .cu file's `coo_lanes` expression, evaluated here, is
+    core/sparse.py's; a BlockCOO's lanes are it at its entries and block
+    rows; and the design points of the slices' tails on the card (13 blocks
+    of 8192 rows): slice D's ~1.5 entries a row give 1 lane, slice C's ~4.7
+    give 4, slice E's ~17 give 16."""
+    expr = " ".join(re.search(r"/\* LANES-FORMULA \*/(.*?)/\* END-FORMULA \*/", open(CU).read(), re.S)
+                    .group(1).split())
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        rows = int(rng.integers(1, 200000))
+        entries = int(rng.integers(0, 40 * rows))
+        assert eval(expr, {}, {"entries": entries, "rows": rows}) == coo_lanes(entries, rows)
+    assert [coo_lanes(m * 100, 100) for m in (0, 1, 2, 3, 4, 8, 16, 17, 31, 32, 64)] == \
+        [1, 1, 2, 2, 4, 8, 16, 16, 16, 32, 32]
+    assert [coo_lanes(int(m * 106496), 106496) for m in (1.5, 4.66, 16.95)] == [1, 4, 16]
+    for seed in (0, 1, 2):
+        tb = layout_from_jax(_tail(seed)[0])
+        assert tb.lanes == coo_lanes(int(tb.counts.sum()), tb.n_blocks * tb.batch)
+
+
+def test_step_linear_predictor_through_the_epilogue():
+    """The step's and the loss pass's linear predictor on the BlockCOO
+    path, ((head + tail) + intercept) + offs assembled by K3's epilogue,
+    equals the unfused ops in the same order (1e-12, f64); with xc the
+    centering term sits between the adds and the unfused ops run.  On
+    CPU tensors the step binds no launcher."""
+    from sgdnet_tpu_torch.families import get_family
+    from sgdnet_tpu_torch.penalties import select_penalty
+    from sgdnet_tpu_torch.solver import saga as tsaga
+
+    _, x = _tail(1)
+    B = 64
+    h, _ = HybridCSR.split_columns(x, coverage=0.6, max_head=128, dtype=torch.float64, device="cpu")
+    h = dataclasses.replace(h, blk_tail=BlockCOO.from_padded(h.tail, B))
+    rng = np.random.default_rng(5)
+    k = 3
+    w = torch.tensor(rng.normal(size=(k, h.n_cols)))
+    icpt = torch.tensor(rng.normal(size=k))
+    offs = torch.tensor(rng.normal(size=(h.n_rows, k)))
+    xc = torch.tensor(rng.normal(size=h.n_cols))
+    xc[: h.n_head] = 0.0
+    for sel in range(0, h.n_rows, B):
+        ob = offs[sel : sel + B]
+        fused = tsaga._linear_predictor(h, None, w, icpt, ob, sel, B)
+        plain = (tsaga._batch_predict(h, None, w, sel, B) + icpt) + ob
+        torch.testing.assert_close(fused, plain, rtol=0, atol=1e-12)
+        centered = tsaga._linear_predictor(h, xc, w, icpt, ob, sel, B)
+        torch.testing.assert_close(centered, (tsaga._batch_predict(h, xc, w, sel, B) + icpt) + ob, rtol=0, atol=0)
+    y = torch.zeros((h.n_rows, k), dtype=torch.float64)
+    step = tsaga._make_step(h, y, torch.ones(h.n_rows, dtype=torch.float64), float(h.n_rows),
+                            get_family("multinomial", n_classes=k), select_penalty(1.0, "multinomial", "ungrouped"),
+                            tsaga.SolverConfig(batch_size=B, sampling="block"))
+    assert step.tail_forward is None
+
+
+def test_profile_sparse_slices_on_the_cpu():
+    """tools/profile_sparse_slices.py end to end on the CPU at a tiny size
+    (two blocks of 8192 rows, one lambda, two epochs): the fit's own step
+    is captured and run for an epoch, its tail's lanes are the formula's,
+    the device numbers are None off the card, and `_make_step` is restored."""
+    from sgdnet_tpu_torch.solver import saga as tsaga
+    from sgdnet_tpu_torch.tools import profile_sparse_slices as pss
+
+    orig = tsaga._make_step
+    out = pss.run("cpu", seed=1, slices="CE", n=16384, p=2000, nlambda=1, maxit=2)
+    assert tsaga._make_step is orig and out["device"] == "cpu" and set(out["slices"]) == {"C", "E"}
+    for s in out["slices"].values():
+        assert s["tail_kernel"] is True and s["k3_launches"] == 0 and s["epochs"] >= 2
+        assert s["step"]["steps"] == 2 and s["step"]["ms_per_step"] > 0 and s["step"]["kernels_per_step"] is None
+        assert s["k3"]["ms"] is None and s["k3"]["lanes"] >= 1
