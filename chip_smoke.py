@@ -28,7 +28,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, with its wall,
      epochs, K1 launches (chunks), host syncs and device busy share (as
      tools/profile_slice_a.py measures them), held against the plain step
-     path on the card over the first quarter of the path, predict/score,
+     path on the card over the first tenth of the path, predict/score,
      and a golden path;
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
@@ -54,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on plain torch ops; its K3 launches, walls, and the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
-     products are torch), held the same way;
+     products are torch), held the same way on the first 5 lambdas;
  11. P1 (the whole-epoch prototype probe, on K1's design) against its twin
      over 2 epochs at the probe's size (N 4224, P 128, B 32), identical
      bits over two runs, and K1 at P1's shape (the same data, starts, gamma,
@@ -70,13 +70,38 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      tools.bench_dma_streams);
  13. slice E: slice D's data and settings with hybrid_max_head="auto", the
      head width the port's layout planner picks from the card's constants
-     (K3 + K4 on the tail it leaves), held the same way, with the plan's
-     predicted epoch beside the measured one; then the same fit made afresh
-     at the plan's width, half and twice it, and the plan's width again,
-     each width's measured epoch beside the cost model's, which says whether
-     the plan's width is the fastest of the three.
-Each path (slices A-E and the three probe entry points) runs with the
-launch counts set to 0 just before it and read just after.  Then a JSON
+     (K3 + K4 on the tail it leaves), held the same way on the first 5
+     lambdas, with the plan's predicted epoch beside the measured one; then
+     the same fit made afresh on the first 4 lambdas at the plan's width,
+     half and twice it, and the plan's width again, each width's measured
+     epoch beside the cost model's, which says whether the plan's width is
+     the fastest of the three;
+ 14. cross-validation on abalone (slice A's fit, 10 folds, the full path,
+     thresh 1e-6): serial `cv_fit` (a fit a fold) and `parallel=True` (the
+     folds as weight masks over one design), both through K1, every fit
+     and fold checked to launch it; the two held to each other as
+     tests/test_parallel.py holds the JAX package's (cv_raw rtol 0.05, atol
+     1e-3; lambda_min equal), and two folds on the first 25 lambdas (slice
+     A's thresh) against the same folds on the plain step (1e-3
+     relative);
+ 15. fold-parallel CV at the north-star width: slice C's data and settings
+     on its 10-lambda path, 3 folds, use_pallas=True (K2 + K3 + K4 in
+     every fold), against the same call on plain torch ops (1e-3
+     relative), with each fold's wall beside slice C's unmasked path, the
+     call's wall and peak device memory; then serial CV of the same folds
+     (a fit on each fold's rows), each fit's wall;
+ 16. screening: slice C with screen=True and screen="auto" on slice C's
+     path, each lambda's penalized objective within 1e-4 relative of the
+     unscreened fit's; a seeded 65536 x 4096 dense gaussian (32 true
+     features, B 4096, block sampling, use_pallas=True) screened both ways
+     against its unscreened fit (2e-3 x scale); walls, mean active set,
+     full_tail_from and K2's launches on the column subsets; then K2
+     against its twin at every shape of this phase's K2 fits (f32, k 1:
+     slice C's rows, B 8192, D 128, 256 and 512; the wide gaussian's,
+     B 4096, D 128 and 4096), timed at D 512.
+Each path (slices A-E, the three probe entry points, the CV calls and the
+screened fits) runs with the launch counts set to 0 just before it and
+read just after.  Then a JSON
 line with every number, one JSON line of the kernels, the card's name and
 power limit, and last {"ok": true, "device": {...}}.  The script needs
 the repository checkout and a CUDA device; it has no CPU path.
@@ -536,8 +561,8 @@ def check_slice_a(f, wall, launches, dev, card):
     check(np.isfinite(dr).all() and np.isfinite(f.beta).all(), "slice A: non-finite path")
     check(np.all(np.diff(dr) >= -1e-6), f"slice A: dev_ratio decreases along the path: {np.diff(dr).min()}")
     # the plain comparison fit takes a minute or more for the 100 lambdas on a
-    # host-bound path: it is made for the first quarter of the path
-    head_n = f.n_lambda // 4
+    # host-bound path: it is made for the first tenth of the path
+    head_n = f.n_lambda // 10
     t0 = time.perf_counter()
     f_plain = st.fit(x, y, family="gaussian", alpha=0.8, device=dev, use_epoch_kernel=False,
                      sampling="block", lambda_path=f.lambda_[:head_n])
@@ -908,7 +933,9 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
             "busy_share": busy / wall, "top": top}
 
 
-def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, seed, kw, card):
+def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, seed, kw, card, plain_lambdas=None):
+    """The slice's checks and numbers; the plain comparison fit runs the
+    first `plain_lambdas` lambdas of its path (None: all)."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.tools.profile_sparse_slices import step_profile
 
@@ -936,16 +963,17 @@ def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, see
     plain_kw = {k: v for k, v in kw.items() if k != "nlambda"}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fp = st.fit(csr, y, device=dev, seed=seed, lambda_path=f.lambda_, use_pallas=False, use_tail_kernel=False,
-                **plain_kw)
+    fp = st.fit(csr, y, device=dev, seed=seed, lambda_path=f.lambda_[:plain_lambdas], use_pallas=False,
+                use_tail_kernel=False, **plain_kw)
     wall_p = time.perf_counter() - t0
     peak_p = torch.cuda.max_memory_allocated()
     check(fp.stats["head_kernel"] is False and fp.stats["tail_kernel"] is False, f"plain slice {name} ran a kernel")
     path_p = fp.stats["wall_time_s"]
     nnz_p = fp.npasses * n * 76 / path_p
-    print(f"  slice {name} on plain torch ops: {wall_p:.3f} s fit wall, {path_p:.3f} s path, {wall_p - path_p:.3f} s "
+    print(f"  slice {name} on plain torch ops, the first {fp.n_lambda} lambdas: {wall_p:.3f} s fit wall, "
+          f"{path_p:.3f} s path, {wall_p - path_p:.3f} s "
           f"set-up, {fp.npasses} epochs, {nnz_p:.4g} nnz/s on the path, peak {peak_p / 2**30:.2f} GiB [{card}]")
-    ok, op = _objective(f, csr, y, sd), _objective(fp, csr, y, sd)
+    ok, op = _objective(f, csr, y, sd)[: fp.n_lambda], _objective(fp, csr, y, sd)
     rel = float(np.max(np.abs(ok - op) / np.abs(op)))
     print(f"  slice {name} penalized objective per lambda, kernels vs plain: max rel diff {rel:.3e} (bound 1e-4); "
           f"objective {ok.round(6)}; dev_ratio {dr.round(4)}; return codes {f.return_codes.tolist()}")
@@ -954,7 +982,8 @@ def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, see
     return {"profile": prof, "step": sp_, "wall_s": wall, "path_s": path, "setup_s": wall - path, "epochs": f.npasses,
             "nnz_per_s": nnz_s,
             "peak_bytes": peak, "head_width": lay["head_width"], "launches": launches, "plain_wall_s": wall_p,
-            "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p, "plain_peak_bytes": peak_p,
+            "plain_lambdas": fp.n_lambda, "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p,
+            "plain_peak_bytes": peak_p,
             "objective_max_rel_diff": rel}
 
 
@@ -1161,12 +1190,13 @@ def model_epoch_ms(csr, width: int, kw) -> float:
     return (head_s + tail_s) * 1e3
 
 
-def planner_neighbours(csr, y, dev, seed, plan, card) -> list:
+def planner_neighbours(csr, y, dev, seed, plan, lambdas, card) -> list:
     """Slice E through the same kernels at the plan's width, half of it
     (rounded up to 128 columns) and twice it, coverage 1.0, each fit made
-    fresh in one sequence that times the plan's width first and last: each
-    width's measured ms an epoch beside the cost model's.  The model is
-    checked against the plan's own prediction at the plan's width first."""
+    fresh on `lambdas` (the first lambdas of slice E's path) in one
+    sequence that times the plan's width first and last: each width's
+    measured ms an epoch beside the cost model's.  The model is checked
+    against the plan's own prediction at the plan's width first."""
     from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_E
 
     d = plan["max_head"]
@@ -1174,21 +1204,379 @@ def planner_neighbours(csr, y, dev, seed, plan, card) -> list:
     check(abs(model_d - (plan["head_ms"] + plan["tail_ms"])) <= 1e-9 * model_d,
           f"the cost model here ({model_d} ms) is not the planner's ({plan['head_ms'] + plan['tail_ms']} ms)")
     rows = []
+    kw = {k: v for k, v in SLICE_E.items() if k not in ("nlambda", "lambda_min_ratio")}
     for width in (d, -(-(d // 2) // 128) * 128, 2 * d, d):
-        f, _, _, _ = run_sparse_slice(csr, y, dev, seed, dict(SLICE_E, hybrid_max_head=width, hybrid_coverage=1.0))
+        f, _, _, _ = run_sparse_slice(csr, y, dev, seed, dict(kw, lambda_path=lambdas, hybrid_max_head=width,
+                                                              hybrid_coverage=1.0))
         check(f.stats["layout_plan"] is None and f.stats["layout"]["head_width"] == width
               and f.stats["tail_kernel"] is True and np.isfinite(f.beta).all(),
               f"slice E at width {width} did not run as asked: {f.stats['layout']}")
         path = f.stats["wall_time_s"]
         rows.append({"width": width, "plan": width == d, "epochs": f.npasses, "path_s": path,
                      "ms_per_epoch": path / f.npasses * 1e3, "model_ms_per_epoch": model_epoch_ms(csr, width, SLICE_E)})
-        print(f"  slice E at D {width}{' (the plan)' if width == d else ''}: {path:.3f} s path, {f.npasses} epochs, "
+        print(f"  slice E at D {width}{' (the plan)' if width == d else ''}, {len(lambdas)} lambdas: {path:.3f} s "
+              f"path, "
+              f"{f.npasses} epochs, "
               f"{rows[-1]['ms_per_epoch']:.4f} ms an epoch measured, {rows[-1]['model_ms_per_epoch']:.4f} modelled "
               f"[{card}]")
     fastest = min(rows, key=lambda r: r["ms_per_epoch"])
     print(f"  the fastest of the three widths is D {fastest['width']}"
           f"{' (the plan)' if fastest['plan'] else ', not the plan'}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: cross-validation and screening
+# ---------------------------------------------------------------------------
+
+
+class FoldClock:
+    """Each fold of parallel/cv.py timed (host clock, after a synchronize)
+    with the K1-K4 launches it made, while installed."""
+
+    def __init__(self):
+        from sgdnet_tpu_torch.parallel import cv as pcv
+
+        self.pcv, self.real, self.folds = pcv, pcv._fold_fit_and_score, []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            before = _launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*a, **kw)
+            torch.cuda.synchronize()
+            after = _launches()
+            self.folds.append({"wall_s": time.perf_counter() - t0,
+                               **{k: after[k] - before[k] for k in ("K1", "K2", "K3", "K4")}})
+            return out
+
+        self.pcv._fold_fit_and_score = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.pcv._fold_fit_and_score = self.real
+
+
+def phase_cv_abalone(dev, card, launches) -> dict:
+    """Phase 14: 10-fold CV of slice A's fit, serial (a fit a fold) and
+    fold-parallel, the full path through K1; each fold's K1 launches; the
+    two held to each other as tests/test_parallel.py holds the JAX
+    package's (cv_raw rtol 0.05, atol 1e-3; lambda_min equal); two folds of
+    the parallel path on the first 25 lambdas (slice A's thresh) against
+    the plain step."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.api import cv as cvmod
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+
+    x, y = st.load_abalone()
+    # thresh 1e-6: the CV curve's tail is flat (an OLS regime), and at the
+    # default 1e-3 the solver's error there outweighs the curve's slope, so
+    # which of its last lambdas is lambda_min would be a coin toss
+    kw = dict(family="gaussian", alpha=0.8, nfolds=10, thresh=1e-6, maxit=5000, device=dev)
+    fits, real_fit = [], cvmod.fit_fn
+
+    def recorded(*a, **k):
+        f = real_fit(*a, **k)
+        fits.append(f.stats)
+        return f
+
+    cvmod.fit_fn = recorded
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        cv_s = st.cv_fit(x, y, **kw)
+        wall_s = time.perf_counter() - t0
+        launches["cv_serial"] = _launches()
+    finally:
+        cvmod.fit_fn = real_fit
+    check(len(fits) == 11 and all(s["epoch_kernel"] and s["epoch_chunks"] > 0 for s in fits),
+          f"serial CV: a fit did not run through K1: {[(s['epoch_kernel'], s['epoch_chunks']) for s in fits]}")
+    check(launches["cv_serial"]["K1"] == sum(s["epoch_chunks"] for s in fits), "serial CV: K1 launches are not chunks")
+    _reset_launches()
+    with FoldClock() as clock:
+        t0 = time.perf_counter()
+        cv_p = st.cv_fit(x, y, parallel=True, **kw)
+        wall_p = time.perf_counter() - t0
+    launches["cv_parallel"] = _launches()
+    folds_k1 = [f["K1"] for f in clock.folds]
+    check(len(folds_k1) == 10 and min(folds_k1) > 0, f"fold-parallel CV: a fold did not launch K1: {folds_k1}")
+    rel = float(np.max(np.abs(cv_p.cv_raw[0] - cv_s.cv_raw[0]) / (np.abs(cv_s.cv_raw[0]) * 0.05 + 1e-3)))
+    same_min = abs(np.log(cv_p.lambda_min) - np.log(cv_s.lambda_min)) < 1e-9
+    print(f"  CV abalone (gaussian alpha 0.8, {len(cv_s.lambda_[0])} lambdas, thresh 1e-6, 10 folds) serial: "
+          f"{wall_s:.3f} s, {launches['cv_serial']['K1']} K1 launches over 11 fits; parallel: "
+          f"{wall_p:.3f} s, K1 launches a fold {folds_k1}, fold walls "
+          f"{[round(f['wall_s'], 3) for f in clock.folds]} s [{card}]")
+    print(f"  CV abalone parallel vs serial: max |d cv_raw| / (0.05 |serial| + 1e-3) = {rel:.3f} (bound 1); "
+          f"lambda_min {cv_p.lambda_min:.6g} / {cv_s.lambda_min:.6g}, lambda_1se {cv_p.lambda_1se:.6g} / "
+          f"{cv_s.lambda_1se:.6g}")
+    check(rel <= 1.0 and same_min, "CV abalone: fold-parallel CV disagrees with serial CV")
+    # two folds of the ten on the first 25 lambdas, K1 against the plain step
+    foldid = np.zeros(len(y), dtype=int)
+    for j, chunk in enumerate(np.array_split(np.random.default_rng(0).permutation(len(y)), 10)):
+        foldid[chunk] = j
+    lam25 = cv_s.lambda_[0][:25]
+    two = dict(alpha=0.8, lambda_path=lam25, family="gaussian", device=dev, sampling="block")  # slice A's thresh
+    t0 = time.perf_counter()
+    k1 = parallel_fold_scores(x, y, foldid, 2, **two)
+    wall_k1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = parallel_fold_scores(x, y, foldid, 2, use_epoch_kernel=False, **two)
+    wall_plain = time.perf_counter() - t0
+    rel2 = float(np.max(np.abs(k1 - plain) / np.abs(plain)))
+    print(f"  CV abalone folds 0-1, first 25 lambdas: K1 {wall_k1:.3f} s, plain step {wall_plain:.3f} s; scores "
+          f"max rel diff {rel2:.3e} (bound 1e-3) [{card}]")
+    check(rel2 <= 1e-3, "CV abalone: K1 folds disagree with the plain step")
+    return {"serial_wall_s": wall_s, "parallel_wall_s": wall_p, "fold_walls_s": [f["wall_s"] for f in clock.folds],
+            "k1_launches_per_fold": folds_k1, "serial_k1_launches": launches["cv_serial"]["K1"],
+            "parallel_vs_serial": rel, "lambda_min": cv_s.lambda_min, "lambda_1se": cv_s.lambda_1se,
+            "two_folds_k1_s": wall_k1, "two_folds_plain_s": wall_plain, "two_folds_rel_diff": rel2}
+
+
+def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
+    """Phase 15: 3-fold fold-parallel CV at slice C's data and settings on
+    its 10-lambda path, use_pallas=True (K2 + K3 + K4), held to the same
+    call on plain torch ops; each fold's wall beside one unmasked slice C
+    path of this run, the whole call's wall and peak device memory; then
+    serial CV of the same folds (`cv_fit`, a fit on each fold's rows) with
+    each fit's wall, the other way to run them."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.api import cv as cvmod
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C
+
+    kw = {k: v for k, v in SLICE_C.items() if k not in ("alpha", "nlambda", "lambda_min_ratio")}
+    foldid = np.arange(csr.shape[0]) % 3
+    out = {}
+    for name, extra in (("kernels", dict(use_pallas=True)), ("plain", dict(use_pallas=False, use_tail_kernel=False))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with FoldClock() as clock:
+            t0 = time.perf_counter()
+            scores = parallel_fold_scores(csr, y, foldid, 3, 1.0, lam_c, device=dev, seed=seed, **kw, **extra)
+            wall = time.perf_counter() - t0
+        launches["cv_slice_c" if name == "kernels" else "cv_slice_c_plain"] = _launches()
+        out[name] = {"scores": scores, "wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "folds": clock.folds}
+        print(f"  CV slice C ({name}): {wall:.3f} s for 3 folds, fold walls "
+              f"{[round(f['wall_s'], 3) for f in clock.folds]} s (one unmasked slice C path {path_c:.3f} s), peak "
+              f"device memory {out[name]['peak_bytes'] / 2**30:.2f} GiB; launches K2 / K3 / K4 a fold "
+              f"{[(f['K2'], f['K3'], f['K4']) for f in clock.folds]} [{card}]")
+    k, p_ = out["kernels"], out["plain"]
+    check(all(f["K2"] > 0 and f["K3"] > 0 and f["K4"] > 0 for f in k["folds"]),
+          "CV slice C: a fold did not run through K2, K3 and K4")
+    check(sum(f["K2"] + f["K3"] + f["K4"] for f in p_["folds"]) == 0, "CV slice C: the plain call ran a kernel")
+    check(np.isfinite(k["scores"]).all() and k["scores"].shape == (3, len(lam_c)), "CV slice C: bad scores")
+    rel = float(np.max(np.abs(k["scores"] - p_["scores"]) / np.abs(p_["scores"])))
+    print(f"  CV slice C kernels vs plain: scores max rel diff {rel:.3e} (bound 1e-3); mean deviance by lambda "
+          f"{k['scores'].mean(axis=0).round(4)}")
+    check(rel <= 1e-3, "CV slice C: the kernels' folds disagree with plain ops")
+    walls, real_fit = [], cvmod.fit_fn
+
+    def timed(*a, **kw_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = real_fit(*a, **kw_)
+        walls.append((time.perf_counter() - t0, f.stats["wall_time_s"], f.npasses))
+        return f
+
+    cvmod.fit_fn = timed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cv_s = st.cv_fit(csr, y, foldid=foldid, lambda_path=lam_c, alpha=1.0, device=dev, seed=seed, **kw)
+        wall_s = time.perf_counter() - t0
+    finally:
+        cvmod.fit_fn = real_fit
+    peak_s = torch.cuda.max_memory_allocated()
+    gap = float(np.max(np.abs(cv_s.cv_raw[0] - k["scores"]) / np.abs(cv_s.cv_raw[0])))
+    check(np.isfinite(cv_s.cv_raw[0]).all() and len(walls) == 4, "CV slice C: serial CV failed")
+    print(f"  CV slice C serial (cv_fit: the full-data fit, then a fit on each fold's rows): {wall_s:.3f} s; fold "
+          f"fits {[round(w[0], 3) for w in walls[1:]]} s wall, {[round(w[1], 3) for w in walls[1:]]} s path, "
+          f"{[w[2] for w in walls[1:]]} epochs (the full-data fit {walls[0][0]:.3f} s); peak "
+          f"{peak_s / 2**30:.2f} GiB; its scores vs the fold-parallel ones: max rel diff {gap:.3e} [{card}]")
+    return {"wall_s": k["wall_s"], "fold_walls_s": [f["wall_s"] for f in k["folds"]], "peak_bytes": k["peak_bytes"],
+            "launches_per_fold": [{n: f[n] for n in ("K2", "K3", "K4")} for f in k["folds"]],
+            "plain_wall_s": p_["wall_s"], "plain_fold_walls_s": [f["wall_s"] for f in p_["folds"]],
+            "plain_peak_bytes": p_["peak_bytes"], "slice_c_path_s": path_c, "rel_diff": rel,
+            "serial_wall_s": wall_s, "serial_fold_walls_s": [w[0] for w in walls[1:]],
+            "serial_fold_paths_s": [w[1] for w in walls[1:]], "serial_full_fit_s": walls[0][0],
+            "serial_peak_bytes": peak_s, "serial_vs_parallel_rel": gap}
+
+
+#: phase 16's wide dense gaussian: rows, columns
+WIDE = (65536, 4096)
+
+
+class SubsetLaunches:
+    """K2 launches of screening's fit_path calls on its column subsets
+    (told from the full-layout calls by the subset tensors it made)."""
+
+    def __init__(self):
+        from sgdnet_tpu_torch.solver import screening
+
+        self.mod, self.subset_ptrs, self.k2, self.calls = screening, set(), 0, 0
+        self.real = (screening._column_subset, screening.fit_path)
+
+    def __enter__(self):
+        real_subset, real_fit_path = self.real
+
+        def subset(*a, **kw):
+            sub = real_subset(*a, **kw)
+            self.subset_ptrs.add(sub.data_ptr())
+            return sub
+
+        def fit_path(x, *a, **kw):
+            before = _launches()["K2"]
+            out = real_fit_path(x, *a, **kw)
+            if isinstance(x, torch.Tensor) and x.data_ptr() in self.subset_ptrs:
+                self.k2 += _launches()["K2"] - before
+                self.calls += 1
+            return out
+
+        self.mod._column_subset, self.mod.fit_path = subset, fit_path
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._column_subset, self.mod.fit_path = self.real
+
+
+def k2_subset_check(rng, dev, card) -> dict:
+    """K2 at the shapes phase 16 gives it, held against the twin (f32: g
+    1e-5, corr 2e-3) with identical bits over two runs: slice C's dense f32
+    column subsets (n_pad 106496, B 8192, binomial, k 1, a fold's 0/1
+    weights) at the widths its groups took (128, 256, 512), and the wide
+    gaussian's (n_pad 65536, B 4096, gaussian, k 1, weights 1) at its
+    subsets' width (128) and its unscreened fit's (4096, the WIDE design);
+    then time a call, device time and the bound at slice C's K 512, beside
+    the plain version and the two torch.mm products."""
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+
+    cases = [(106496, 8192, K, "binomial") for K in (128, 256, 512)]
+    cases += [(WIDE[0], 4096, K, "gaussian") for K in (128, WIDE[1])]
+    worst, out, timed = 0.0, {}, None
+    for n_pad, B, K, family in cases:
+        start = B * 5
+        head = torch.as_tensor(rng.standard_normal((n_pad, K), dtype=np.float32), device=dev)
+        w = torch.as_tensor(rng.standard_normal((1, K), dtype=np.float32) / float(np.sqrt(K)), device=dev)
+        lpe = torch.as_tensor(0.1 * rng.standard_normal((B, 1), dtype=np.float32), device=dev)
+        gm = torch.as_tensor(0.1 * rng.standard_normal((B, 1), dtype=np.float32), device=dev)
+        if family == "binomial":
+            yb = torch.as_tensor((rng.random((B, 1)) < 0.5).astype(np.float32), device=dev)
+            wb = torch.as_tensor((rng.random(B) < 0.67).astype(np.float32), device=dev)  # a fold's mask
+        else:
+            yb = torch.as_tensor(rng.standard_normal((B, 1), dtype=np.float32), device=dev)
+            wb = torch.ones(B, device=dev)
+        args = (head, start, w, lpe, yb, gm, wb, family)
+        g, corr = hk.fused_head_step_at(*args)
+        g_ref, corr_ref = hk.fused_head_step_reference(*args)
+        same = all(torch.equal(u, v) for u, v in zip((g, corr), hk.fused_head_step_at(*args)))
+        eg, ec = float((g - g_ref).abs().max()), float((corr - corr_ref).abs().max())
+        worst = max(worst, eg, ec)
+        print(f"  K2 on a screened problem's shape, {family} f32 n_pad={n_pad} D={K} k=1 B={B} "
+              f"({hk.device_plan(head, B, 1)}): max|dg|={eg:.3e} max|dcorr|={ec:.3e} (bound g 1e-5, corr 2e-3), "
+              f"bits identical over two runs {same}")
+        check(same and eg <= 1e-5 and ec <= 2e-3, f"K2 disagrees with its twin at {family} n_pad {n_pad} D {K} B {B}")
+        if (n_pad, B, K) == (106496, 8192, 512):
+            timed = (args, head, w, start, B, K, n_pad)
+        head = None
+    args, head, w, start, B, K, n_pad = timed
+    ms = cuda_ms(lambda: hk.fused_head_step_at(*args), 50)
+    plain_ms = cuda_ms(lambda: hk.fused_head_step_reference(*args), 50)
+    xb = head[start:start + B]
+    gct = torch.zeros((1, B), device=dev)
+    two_ms = cuda_ms(lambda: (xb @ w.T, gct @ xb), 50)
+    dev_ms = device_ms(lambda: hk.fused_head_step_at(*args), 20, hk.KERNEL_NAMES)
+    check(dev_ms is not None, "the profile shows no K2 kernel at the subset width")
+    b = roofline(4 * (B * K + 2 * K + 4 * B + B), 4 * B * K, F32_FLOPS)
+    print(f"  K2 time at the subset width (n_pad {n_pad}, f32 D={K} k=1 B={B}, {hk.device_plan(head, B, 1)}): kernel "
+          f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the device), plain torch {plain_ms:.4f} ms, the two torch.mm "
+          f"products {two_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}) [{card}]")
+    out.update({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+                "two_products_ms": two_ms, "device_ms": dev_ms})
+    return out
+
+
+def _screened(x, y, dev, seed, kw, label, launches, card):
+    import sgdnet_tpu_torch as st
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    with SubsetLaunches() as sub:
+        t0 = time.perf_counter()
+        f = st.fit(x, y, device=dev, seed=seed, **kw)
+        wall = time.perf_counter() - t0
+    launches[label] = _launches()
+    check(f.stats["tail_kernel"] == (launches[label]["K3"] > 0),
+          f"{label}: stats['tail_kernel'] is {f.stats['tail_kernel']} with {launches[label]['K3']} K3 launches")
+    scr = f.stats["screening"]
+    print(f"  {label}: {wall:.3f} s fit wall, {f.stats['wall_time_s']:.3f} s path, {f.npasses} epochs, mean active "
+          f"{scr['mean_active']:.1f} of {scr['p']} (groups {scr['active_per_group']}), full_tail_from "
+          f"{scr['full_tail_from']}, fallback groups {scr['full_fallback_groups']}, KKT rounds "
+          f"{scr['kkt_rounds_per_group']}; K2 launches {launches[label]['K2']} ({sub.k2} on subsets, in "
+          f"{sub.calls} subset fits), K1 {launches[label]['K1']}, K3 {launches[label]['K3']}, K4 "
+          f"{launches[label]['K4']} [{card}]")
+    return f, wall, sub
+
+
+def phase_screening(csr, y, sd, lam_c, obj_c, path_c, dev, seed, card, launches) -> dict:
+    """Phase 16: slice C screened (True and "auto") on slice C's path, each
+    lambda's penalized objective within 1e-4 relative of the unscreened
+    fit's (phase 9); a seeded wide dense gaussian (n 65536, p 4096, 32 true
+    features, B 4096, block sampling, use_pallas=True) screened and
+    unscreened, coefficients within 2e-3 x scale (tests/test_screening.py)."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C
+
+    out = {"slice_c_path_s": path_c}
+    kw_c = {k: v for k, v in SLICE_C.items() if k not in ("nlambda", "lambda_min_ratio")}
+    for screen in (True, "auto"):
+        label = f"screen_{'true' if screen is True else 'auto'}_c"
+        f, wall, sub = _screened(csr, y, dev, seed, dict(kw_c, lambda_path=lam_c, screen=screen), label, launches,
+                                 card)
+        rel = float(np.max(np.abs(_objective(f, csr, y, sd) - obj_c) / np.abs(obj_c)))
+        print(f"  {label} penalized objective vs the unscreened slice C fit: max rel diff {rel:.3e} (bound 1e-4); "
+              f"unscreened path {path_c:.3f} s")
+        check(np.isfinite(f.beta).all() and rel <= 1e-4, f"{label}: the screened path misses the unscreened one")
+        scr = f.stats["screening"]
+        out[label] = {"wall_s": wall, "path_s": f.stats["wall_time_s"], "epochs": f.npasses,
+                      "mean_active": scr["mean_active"], "active_per_group": scr["active_per_group"],
+                      "full_tail_from": scr["full_tail_from"], "fallback_groups": scr["full_fallback_groups"],
+                      "k2_on_subsets": sub.k2, "subset_fits": sub.calls, "objective_rel_diff": rel}
+    # the wide dense gaussian
+    rng = np.random.default_rng(seed + 16)
+    n, p = WIDE
+    x = torch.randn((n, p), generator=torch.Generator(device=dev).manual_seed(seed + 16), device=dev)
+    beta = np.zeros(p, np.float32)
+    beta[rng.choice(p, 32, replace=False)] = rng.normal(size=32) * 2
+    y_w = (x @ torch.as_tensor(beta, device=dev)).cpu().numpy() + rng.normal(size=n).astype(np.float32)
+    kw_w = dict(family="gaussian", nlambda=10, lambda_min_ratio=0.1, thresh=1e-4, maxit=300, batch_size=4096,
+                sampling="block", use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_full = st.fit(x, y_w, device=dev, seed=seed, **kw_w)
+    wall_full = time.perf_counter() - t0
+    check(f_full.stats["head_kernel"] is True, "the wide gaussian's unscreened fit did not run through K2")
+    kw_s = dict(kw_w, nlambda=None, lambda_path=f_full.lambda_)
+    res = {"unscreened_wall_s": wall_full, "unscreened_path_s": f_full.stats["wall_time_s"],
+           "unscreened_epochs": f_full.npasses}
+    for screen in (True, "auto"):
+        label = f"screen_{'true' if screen is True else 'auto'}_wide"
+        f, wall, sub = _screened(x, y_w, dev, seed, dict(kw_s, screen=screen), label, launches, card)
+        scale = max(1.0, float(np.abs(f_full.beta).max()))
+        rel = float(np.abs(f.beta - f_full.beta).max()) / scale
+        print(f"  {label} vs unscreened ({wall_full:.3f} s fit wall, {f_full.stats['wall_time_s']:.3f} s path, "
+              f"{f_full.npasses} epochs): max |d beta| / scale {rel:.3e} (bound 2e-3)")
+        check(sub.k2 > 0, f"{label}: no subset fit ran through K2")
+        check(rel <= 2e-3, f"{label}: the screened fit misses the unscreened one")
+        scr = f.stats["screening"]
+        res[label] = {"wall_s": wall, "path_s": f.stats["wall_time_s"], "epochs": f.npasses,
+                      "mean_active": scr["mean_active"], "full_tail_from": scr["full_tail_from"],
+                      "k2_on_subsets": sub.k2, "subset_fits": sub.calls, "beta_rel_diff": rel}
+    out["wide"] = res
+    return out
 
 
 def main(argv=None) -> int:
@@ -1203,28 +1591,33 @@ def main(argv=None) -> int:
     from sgdnet_tpu_torch.utils import build
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def phase(title):
+        print(f"{title} [{time.perf_counter() - t_start:.1f} s into the run]")
+
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is enabled globally")
     rng = np.random.default_rng(args.seed)
 
-    print("phase 1: card")
+    phase("phase 1: card")
     card = card_line()
     print(card)
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True, check=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; {torch.cuda.get_device_name(0)}")
 
-    print("phase 2: build")
+    phase("phase 2: build")
     build.load_library()
     info = build.build_info()
     print(f"  {'built' if info['built'] else 'loaded'} {os.path.relpath(info['path'], ROOT)} "
           f"in {info['seconds']:.2f} s")
 
-    print("phase 3: K2 vs twin")
+    phase("phase 3: K2 vs twin")
     k2 = phase_k2(rng, dev)
-    print("phase 4: K1 vs twin")
+    phase("phase 4: K1 vs twin")
     k1 = phase_k1(rng, dev)
 
-    print("phase 7: K3 / K4 vs twins")
+    phase("phase 7: K3 / K4 vs twins")
     from sgdnet_tpu_torch.core.sparse import scipy_column_stats
     from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C, SLICE_D, SLICE_E, make_sparse_binomial
 
@@ -1234,10 +1627,10 @@ def main(argv=None) -> int:
     print(f"  slice C/D data: {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} nonzeros after summing duplicates, "
           f"made in {time.perf_counter() - t0:.2f} s")
     k3, k4 = phase_tail(rng, dev, csr, args.seed)
-    print("phase 8: K2 vs twin at slice C's width")
+    phase("phase 8: K2 vs twin at slice C's width")
     k2w = phase_k2_wide(rng, dev, args.seed)
 
-    print("phases 5, 6, 9, 10: the paths, each with the launch counts set to 0 just before it")
+    phase("phases 5, 6, 9, 10: the paths, each with the launch counts set to 0 just before it")
     launches = {}
     _reset_launches()
     fit_a, wall_a = run_slice_a(dev)
@@ -1246,46 +1639,62 @@ def main(argv=None) -> int:
     fit_b, wall_b, xt, y = run_slice_b(dev, args.seed)
     launches["B"] = _launches()
     print(f"  launches: slice A {launches['A']}, slice B {launches['B']}")
-    print("phase 5: slice A")
+    phase("phase 5: slice A")
     slice_a = check_slice_a(fit_a, wall_a, launches["A"]["K1"], dev, card)
-    print("phase 6: slice B")
+    phase("phase 6: slice B")
     slice_b = check_slice_b(fit_b, wall_b, launches["B"]["K2"], xt, y, dev, card, args.seed)
     fit_a = fit_b = xt = None
-    print("phase 9: slice C")
+    phase("phase 9: slice C")
     _reset_launches()
     fit_c, wall_c, peak_c, step_c = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_C)
     launches["C"] = _launches()
     slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], step_c, csr, y_sp, sd, dev, args.seed,
                                  SLICE_C, card)
+    lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
     fit_c = step_c = None
-    print("phase 10: slice D")
+    phase("phase 10: slice D")
     _reset_launches()
     fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
     launches["D"] = _launches()
     slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], step_d, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_D, card)
+                                 SLICE_D, card, plain_lambdas=5)
     fit_d = step_d = None
     torch.cuda.empty_cache()
 
-    print("phase 11: P1 vs twin")
+    phase("phase 11: P1 vs twin")
     p1 = phase_p1(rng, dev)
-    print("phase 12: P2 / P3 vs twin")
+    phase("phase 12: P2 / P3 vs twin")
     p2, p3, ceiling = phase_p23(dev, args.seed)
-    print("phases 11, 12: the probe entry points, each with the launch counts set to 0 just before it")
+    phase("phases 11, 12: the probe entry points, each with the launch counts set to 0 just before it")
     probes = run_probe_paths(dev, args.seed, launches)
 
-    print("phase 13: slice E (the layout planner)")
+    phase("phase 13: slice E (the layout planner)")
     _reset_launches()
     fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
     launches["E"] = _launches()
     slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_E, card)
+                                 SLICE_E, card, plain_lambdas=5)
     step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
-    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], card)
+    # the widths on the first 4 lambdas of the path: ms an epoch is what they compare
+    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], fit_e.lambda_[:4], card)
+    fit_e = None
+    torch.cuda.empty_cache()
+
+    phase("phases 14-16: cross-validation and screening, each path with the launch counts set to 0 just before it")
+    phase("phase 14: CV on abalone (serial and fold-parallel, through K1)")
+    cv_a = phase_cv_abalone(dev, card, launches)
+    phase("phase 15: fold-parallel CV at slice C's width (K2 + K3 + K4)")
+    cv_c = phase_cv_slice_c(csr, y_sp, lam_c, slice_c["path_s"], dev, args.seed, card, launches)
+    torch.cuda.empty_cache()
+    phase("phase 16: screening (slice C, and a wide dense gaussian through K2 on subsets)")
+    screening = phase_screening(csr, y_sp, sd, lam_c, obj_c, slice_c["path_s"], dev, args.seed, card, launches)
+    phase("phase 16: K2 against its twin at the shapes of the screened problems' fits")
+    k2s = k2_subset_check(rng, dev, card)
+    phase("every phase passed")
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
                       "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
-                      "full_head_sum": ceiling}))
+                      "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening}))
 
     def by_path(key, paths):
         return {"launches": sum(launches[p][key] for p in paths),
@@ -1296,17 +1705,21 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": "saga_epochs (K1), one abalone epoch", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
-         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", "A"), **k1},
+         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", ["A", "cv_serial", "cv_parallel"]),
+         **k1},
         {"name": "fused_head_step_at (K2), f32 D=784 k=10 B=4096", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", "B"), **k2},
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
-         **by_path("K2", ["C", "H"]), **k2w},
+         **by_path("K2", ["C", "H", "cv_slice_c"]), **k2w},
+        {"name": "fused_head_step_at (K2), f32 screened subsets, D=512 k=1 B=8192", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
+         **by_path("K2", ["screen_true_c", "screen_auto_c", "screen_true_wide", "screen_auto_wide"]), **k2s},
         {"name": "coo_tail_forward (K3)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K3", "CDE"), **k3},
+         **by_path("K3", ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c"]), **k3},
         {"name": "coo_tail_outer (K4)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K4", "CDE"), **k4},
+         **by_path("K4", ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c"]), **k4},
         {"name": "epoch_probe (P1)", "route": "cuda", "source": probe_src,
          "replaces": "tools/bench_epoch_kernel.py:65", **by_path("P1", ["P1"]), **p1},
         {"name": "block_colsum (P2), bf16 106496 x 16384, B 8192", "route": "cuda", "source": probe_src,

@@ -14,6 +14,13 @@ from sgdnet_tpu_torch.data import load_abalone, load_dataset, load_heart, load_s
 __version__ = "0.1.0"
 
 __all__ = [
-    "fit", "predict", "score", "SgdnetFit",
+    "fit", "predict", "score", "SgdnetFit", "cv_fit",
     "load_dataset", "load_abalone", "load_heart", "load_wine", "load_student",
 ]
+
+
+def cv_fit(*args, **kwargs):
+    """k-fold cross-validation (api/cv.py `cv_fit`, loaded at first call)."""
+    from sgdnet_tpu_torch.api.cv import cv_fit as _cv_fit
+
+    return _cv_fit(*args, **kwargs)

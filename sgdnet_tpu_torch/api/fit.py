@@ -11,19 +11,22 @@ from __future__ import annotations
 
 import time
 from dataclasses import asdict, dataclass, field, replace
+from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from sgdnet_tpu_torch.core.layout import plan_layout
 from sgdnet_tpu_torch.core.sparse import (
-    BlockCOO, HybridCSR, PaddedCSR, as_head_dtype, canonical_csr, materialize_int8_head, scipy_column_stats,
+    BlockCOO, HeadNNZ, HybridCSR, PaddedCSR, as_head_dtype, canonical_csr, materialize_int8_head, scipy_column_stats,
     scipy_row_sq_norms,
 )
 from sgdnet_tpu_torch.families import get_family, lambda_max_offset
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel
 from sgdnet_tpu_torch.solver.saga import SagaState, SolverConfig, fit_path, init_state, uses_head_kernel
+from sgdnet_tpu_torch.solver.screening import screened_path
 from sgdnet_tpu_torch.solver.stepsize import power_iteration_sq_norm, saga_step_sizes
 from sgdnet_tpu_torch.utils.device import resolve_device
 
@@ -151,6 +154,248 @@ def _weighted_column_stats(x: torch.Tensor, weights: torch.Tensor):
     return mean, sd
 
 
+def _standardize_design(x, weights, dtype, donate: bool = False):
+    """The solver's standardization of any layout with the row weights
+    `weights` ((n,) tensor; None counts every row of a sparse layout once):
+    (x_std, xc, center, scale), center and scale f64.  Dense x is centred
+    and scaled (xc None); a PaddedCSR is scaled and a HybridCSR's head
+    centred and scaled, its tail scaled, the centering carried as the term
+    xc.  `donate=True` overwrites a HybridCSR's head in place (for callers
+    that own it)."""
+    if isinstance(x, (PaddedCSR, HybridCSR)):
+        center, scale = x.column_stats(weights)
+        if isinstance(x, HybridCSR):
+            x_std, xc = x.standardize(center, scale, donate=donate)
+        else:
+            x_std, xc = x.scale_columns(scale), center / scale
+        return x_std, xc.to(dtype), center, scale
+    center, scale = _weighted_column_stats(x, weights)
+    return ((x.to(torch.float64) - center) / scale).to(dtype), None, center, scale
+
+
+def _max_sq_row_norm(x, xc, active) -> float:
+    """max_i ||x_i - c||^2 over the rows where `active` is 1, any layout (a
+    sparse layout's norms are those of its scaled, centered rows)."""
+    if isinstance(x, (PaddedCSR, HybridCSR)):
+        per_row = x.row_squared_norms(xc)
+    else:
+        per_row = torch.sum(x.to(torch.float64) ** 2, dim=1)
+    return float(torch.max(per_row * active))
+
+
+def _poisson_family(y_enc: np.ndarray, poisson_smoothness):
+    """The poisson family with its data-dependent curvature bound for the
+    exp link (from the whole response), rounded up to a power of two."""
+    if poisson_smoothness is None:
+        ym = y_enc[:, 0]
+        bound = max(float(ym.max()) * 2.0, float(ym.mean()) * 4.0, 2.0)
+    else:
+        bound = float(poisson_smoothness)
+    return get_family("poisson", smoothness=float(2.0 ** np.ceil(np.log2(bound))))
+
+
+def _link_offset(offset, family: str, n_classes: int, n_samples: int, y_enc: np.ndarray):
+    """(offset as given, (n, kk); the offset the solver carries, or None;
+    the encoded response): identity-link families absorb the offset into
+    the response, the others carry it through the fit."""
+    if offset is None:
+        return None, None, y_enc
+    offset_arr = np.asarray(offset, dtype=np.float64)
+    if offset_arr.ndim == 1:
+        offset_arr = offset_arr.reshape(-1, 1)
+    kk = n_classes if family in ("multinomial", "mgaussian") else 1
+    if offset_arr.shape != (n_samples, kk):
+        want = f"({n_samples},)" if kk == 1 else f"({n_samples}, {kk})"
+        raise ValueError(f"offset must have shape {want} for family '{family}'")
+    if np.isnan(offset_arr).any():
+        raise ValueError("NA values are not allowed.")
+    if family in ("gaussian", "mgaussian"):
+        return offset_arr, None, y_enc - offset_arr  # identity link: absorb into the response
+    return offset_arr, offset_arr, y_enc
+
+
+def _feature_constraints(n_features: int, exclude, penalty_factor, lower_limits, upper_limits, col_perm):
+    """(exclusion mask, penalty factors scaled to mean 1 over the features
+    not excluded, lower and upper limits), numpy or None each, in the
+    layout's column order (`col_perm`); an infinite penalty factor
+    excludes its feature, as in glmnet."""
+    excl_mask = None
+    if exclude is not None:
+        ex = np.atleast_1d(np.asarray(exclude, dtype=np.int64)).ravel()
+        if ex.size and (ex.min() < 0 or ex.max() >= n_features):
+            raise ValueError("exclude indices must be in [0, n_features)")
+        excl_mask = np.zeros(n_features, dtype=bool)
+        excl_mask[ex] = True
+
+    pf_np = None
+    if penalty_factor is not None:
+        pf_np = np.asarray(penalty_factor, dtype=np.float64).ravel()
+        if pf_np.shape != (n_features,):
+            raise ValueError("penalty_factor must have one entry per feature")
+        if (pf_np < 0).any() or np.isnan(pf_np).any():
+            raise ValueError("penalty_factor entries must be nonnegative")
+        inf_pf = np.isinf(pf_np)
+        if inf_pf.any():  # glmnet: infinite penalty factor == exclude
+            excl_mask = inf_pf if excl_mask is None else (excl_mask | inf_pf)
+            pf_np = np.where(inf_pf, 1.0, pf_np)
+
+    lower_np = upper_np = None
+    if lower_limits is not None:
+        lower_np = np.broadcast_to(np.asarray(lower_limits, dtype=np.float64), (n_features,)).copy()
+        if (lower_np > 0).any():
+            raise ValueError("lower_limits must be <= 0 (coefficients start at zero)")
+    if upper_limits is not None:
+        upper_np = np.broadcast_to(np.asarray(upper_limits, dtype=np.float64), (n_features,)).copy()
+        if (upper_np < 0).any():
+            raise ValueError("upper_limits must be >= 0 (coefficients start at zero)")
+
+    if col_perm is not None:  # user vectors are in the original column order
+        excl_mask, pf_np, lower_np, upper_np = (None if v is None else v[col_perm]
+                                                for v in (excl_mask, pf_np, lower_np, upper_np))
+
+    if pf_np is not None:
+        # rescale: mean over non-excluded features = 1
+        sel = ~excl_mask if excl_mask is not None else np.ones(n_features, bool)
+        if sel.any():
+            m = float(pf_np[sel].mean())
+            if m > 0:
+                pf_np = pf_np / m
+    return excl_mask, pf_np, lower_np, upper_np
+
+
+def _box_limits(n_features: int, lower_np, upper_np, excl_mask):
+    """(lo, hi) coefficient bounds on the data scale, excluded features
+    pinned at [0, 0]; None when there are none."""
+    if lower_np is None and upper_np is None and excl_mask is None:
+        return None
+    lo = lower_np.copy() if lower_np is not None else np.full(n_features, -np.inf)
+    hi = upper_np.copy() if upper_np is not None else np.full(n_features, np.inf)
+    if excl_mask is not None:
+        lo[excl_mask] = 0.0
+        hi[excl_mask] = 0.0
+    if (lo > hi).any():
+        raise ValueError("lower_limits must be <= upper_limits")
+    return lo, hi
+
+
+def _epoch_kernel_gate(use_epoch_kernel, sampling, dev, dtype, n_samples: int, n_pad: int, n_features: int,
+                       n_classes: int, batch_size: int, dense: bool, plain_only: bool, with_offs: bool,
+                       warm: bool):
+    """(K1 runs, the sampling): dense f32 problems within the Hopper gate
+    run each λ attempt's epochs in launches of K1, by default on CUDA only
+    (on the CPU its twin runs on explicit opt-in, as interpret mode does in
+    the JAX package); debug and box limits (`plain_only`) and a warm state
+    stay on the step path.  Unset sampling is block under K1, else block
+    from 32768 rows on; a warm state keeps permutation, as block mode
+    pre-shuffles rows and would misalign a g_mem saved under another
+    order."""
+    ek_ok = (
+        use_epoch_kernel is not False
+        and dense
+        and not plain_only
+        and not warm
+        and dtype == torch.float32
+        and epoch_kernel.supported(n_pad, n_features, n_classes, batch_size, with_offs=with_offs)
+        and (use_epoch_kernel is True or dev.type == "cuda")
+    )
+    if sampling is None:
+        if warm:
+            sampling = "permutation"
+        elif ek_ok:
+            sampling = "block"
+        else:
+            sampling = "block" if n_samples >= 32768 else "permutation"
+    if sampling not in ("permutation", "block"):
+        raise ValueError("sampling must be 'permutation' or 'block'")
+    return ek_ok, sampling
+
+
+class Design(NamedTuple):
+    """The design matrix as `_as_design_matrix` builds it on the device."""
+
+    x: object  # dense tensor, PaddedCSR or HybridCSR
+    is_sparse: bool
+    prebuilt: bool  # a layout the caller built (fit keeps its columns in its order)
+    col_perm: np.ndarray | None  # hybrid column permutation: new column j is original col_perm[j]
+    head_nnz: HeadNNZ | None  # an int8 head in nonzero form, rebuilt shuffled and padded by fit
+    pre_std: tuple | None  # (mean, sd) in original column order, when standardized on the host
+    pre_row_sq: np.ndarray | None  # host row norms of the standardized design (int8 ingestion)
+    layout_plan: object  # the planner's LayoutPlan under hybrid_max_head="auto" on scipy input
+    max_head: int  # hybrid_max_head, resolved
+    coverage: float  # hybrid_coverage, 1.0 where the plan governs the split
+
+
+def _as_design_matrix(x, dtype, dev, hybrid=None, hybrid_coverage=0.9, hybrid_max_head=16384,
+                      hybrid_memory_budget=2e9, head_dtype=None, batch_size=32, g_sum_refresh_every=1,
+                      standardize=True, sample_weight=None, plan_itemsize=None) -> Design:
+    """Dense (numpy or torch), scipy sparse, PaddedCSR or HybridCSR input
+    as the solver's layout on `dev`: scipy input with more than 512 columns
+    (or `hybrid=True`) becomes a HybridCSR with a column permutation, else a
+    PaddedCSR; a prebuilt layout is moved to `dev` and held to the checks a
+    scipy input gets.  An int8 head (`head_dtype`) is built on the host,
+    standardized there with `sample_weight` when `standardize`.  NaN in x
+    raises.  The planner prices the head at `plan_itemsize` bytes an
+    element (default: the head's type)."""
+    layout_plan = None
+    if hybrid_max_head == "auto":
+        # the cost-model planner (core/layout.py): the head width where the
+        # column-popularity curve crosses the dense-stream vs element-op
+        # break-even, capped by the head memory budget
+        hybrid_max_head = 16384  # for input that is not scipy-sparse
+        if _issparse(x):
+            itemsize = plan_itemsize or (head_dtype or dtype).itemsize
+            layout_plan = plan_layout(x, batch_size=batch_size, head_itemsize=itemsize,
+                                      g_sum_refresh_every=g_sum_refresh_every, hbm_budget=hybrid_memory_budget)
+            hybrid_max_head = layout_plan.max_head
+            hybrid_coverage = 1.0  # the planner's D governs the split
+
+    col_perm = head_nnz = pre_std = pre_row_sq = None
+    prebuilt = isinstance(x, (PaddedCSR, HybridCSR))
+    is_sparse = prebuilt or _issparse(x)
+    if prebuilt:
+        # a layout built by the caller: moved to the device and held to the
+        # checks a scipy input gets; its columns stay in its order
+        x = x.ingest(dev, dtype) if isinstance(x, HybridCSR) else x.to(dev, dtype).canonical()
+    elif is_sparse:
+        xs = canonical_csr(x)
+        if np.isnan(xs.data).any():
+            raise ValueError("NA values are not allowed.")
+        split_kw = dict(coverage=hybrid_coverage, max_head=hybrid_max_head, dtype=dtype,
+                        memory_budget=hybrid_memory_budget, device=dev)
+        use_hybrid = hybrid if hybrid is not None else xs.shape[1] > 512
+        if use_hybrid and head_dtype == torch.int8:
+            # int8 ingestion on the host: column stats, row norms and the
+            # standardization fused into the quantization; the head crosses
+            # to the device as its nonzeros
+            if standardize:
+                w_host = None if sample_weight is None else np.asarray(sample_weight, np.float64)
+                pre_std = scipy_column_stats(xs, w_host)
+                pre_row_sq = scipy_row_sq_norms(xs, *pre_std)
+            else:
+                pre_row_sq = scipy_row_sq_norms(xs)
+            x, col_perm = HybridCSR.split_columns(xs, head_dtype=torch.int8, std_stats=pre_std, head_form="nnz",
+                                                  **split_kw)
+            head_nnz = x.head
+            x = replace(x, head=materialize_int8_head(head_nnz, device=dev))
+        elif use_hybrid:
+            x, col_perm = HybridCSR.split_columns(xs, head_dtype=head_dtype, **split_kw)
+        else:
+            x = PaddedCSR.from_scipy(xs, dtype=dtype, device=dev)
+    else:
+        x_in = x.detach() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if x_in.ndim != 2:
+            raise ValueError("x must be a 2-D matrix")
+        if isinstance(x_in, torch.Tensor):
+            nan = x_in.is_floating_point() and bool(torch.isnan(x_in).any())
+        else:
+            nan = x_in.dtype != object and np.issubdtype(x_in.dtype, np.floating) and np.isnan(x_in).any()
+        if nan:
+            raise ValueError("NA values are not allowed.")
+        x = torch.as_tensor(x_in).to(dtype=dtype, device=dev)
+    return Design(x, is_sparse, prebuilt, col_perm, head_nnz, pre_std, pre_row_sq, layout_plan, hybrid_max_head,
+                  hybrid_coverage)
+
+
 def fit(
     x,
     y,
@@ -231,14 +476,23 @@ def fit(
     width is the model's optimum, not one found fastest on the card
     (chip_smoke.py phase 13 times the widths either side of it).
 
-    Not ported yet, and raising NotImplementedError: `mesh`, `screen`
-    other than False and `lambda_chunk`.
+    `screen` selects strong-rule screening of the path (solver/
+    screening.py): True runs the screened path (KKT-checked, so exact;
+    groups in the dense regime fall back to the full layout), "auto"
+    screens until the first group in the dense regime and then fits the
+    rest of the path unscreened; ridge and debug fits run unscreened under
+    "auto" and raise under True.  `stats["screening"]` holds its record,
+    and `nnz` / `nnz_per_s` then count the elements the solver streamed
+    (`coverage_nnz`: the full design's).
+
+    Not ported yet, and raising NotImplementedError: `mesh` and
+    `lambda_chunk`.
     """
     # ---- keywords outside the slice ----
     if mesh is not None:
-        _not_in_slice("mesh (data-parallel fits)", "9")
-    if screen is not False:
-        _not_in_slice("screen", "11")
+        _not_in_slice("mesh (data-parallel fits)", "4")
+    if screen not in (False, True, "auto"):
+        raise ValueError(f"screen must be False, True, or 'auto'; got {screen!r}")
     if isinstance(hybrid_max_head, str) and hybrid_max_head != "auto":
         raise ValueError(f"hybrid_max_head must be an int or 'auto'; got {hybrid_max_head!r}")
     if lambda_chunk is not None:
@@ -262,69 +516,13 @@ def fit(
     f64 = dict(dtype=torch.float64, device=dev)
     head_dtype = as_head_dtype(hybrid_head_dtype)
 
-    layout_plan = None
-    if hybrid_max_head == "auto":
-        # the cost-model planner (core/layout.py): the head width where the
-        # column-popularity curve crosses the dense-stream vs element-op
-        # break-even, capped by the head memory budget
-        hybrid_max_head = 16384  # for input that is not scipy-sparse
-        if _issparse(x):
-            layout_plan = plan_layout(x, batch_size=batch_size, head_itemsize=(head_dtype or dtype).itemsize,
-                                      g_sum_refresh_every=g_sum_refresh_every, hbm_budget=hybrid_memory_budget)
-            hybrid_max_head = layout_plan.max_head
-            hybrid_coverage = 1.0  # the planner's D governs the split
-
-    # ---- the design matrix ----
-    col_perm = None  # hybrid column permutation: new column j is original col_perm[j]
-    head_nnz = None  # int8 head in nonzero form, rebuilt shuffled and padded below
-    pre_std = None  # (mean, sd) in original column order when standardized on the host
-    pre_row_sq = None  # host row norms of the standardized design (int8 ingestion)
-    prebuilt = isinstance(x, (PaddedCSR, HybridCSR))
-    is_sparse = prebuilt or _issparse(x)
-    if prebuilt:
-        # a layout built by the caller: moved to the fit's device and held
-        # to the checks a scipy input gets; its columns stay in its order
-        x = x.ingest(dev, dtype) if isinstance(x, HybridCSR) else x.to(dev, dtype).canonical()
-    elif is_sparse:
-        xs = canonical_csr(x)
-        if np.isnan(xs.data).any():
-            raise ValueError("NA values are not allowed.")
-        split_kw = dict(coverage=hybrid_coverage, max_head=hybrid_max_head, dtype=dtype,
-                        memory_budget=hybrid_memory_budget, device=dev)
-        use_hybrid = hybrid if hybrid is not None else xs.shape[1] > 512
-        if use_hybrid and head_dtype == torch.int8:
-            # int8 ingestion on the host: column stats, row norms and the
-            # standardization fused into the quantization; the head crosses
-            # to the device as its nonzeros
-            if standardize:
-                w_host = None if sample_weight is None else np.asarray(sample_weight, np.float64)
-                pre_std = scipy_column_stats(xs, w_host)
-                pre_row_sq = scipy_row_sq_norms(xs, *pre_std)
-            else:
-                pre_row_sq = scipy_row_sq_norms(xs)
-            x, col_perm = HybridCSR.split_columns(xs, head_dtype=torch.int8, std_stats=pre_std, head_form="nnz",
-                                                  **split_kw)
-            head_nnz = x.head
-            x = replace(x, head=materialize_int8_head(head_nnz, device=dev))
-        elif use_hybrid:
-            x, col_perm = HybridCSR.split_columns(xs, head_dtype=head_dtype, **split_kw)
-        else:
-            x = PaddedCSR.from_scipy(xs, dtype=dtype, device=dev)
-        xs = None
-    elif isinstance(x, torch.Tensor):
-        x_in = x.detach()
-        if x_in.ndim != 2:
-            raise ValueError("x must be a 2-D matrix")
-        if x_in.is_floating_point() and bool(torch.isnan(x_in).any()):
-            raise ValueError("NA values are not allowed.")
-    else:
-        x_in = np.asarray(x)
-        if x_in.ndim != 2:
-            raise ValueError("x must be a 2-D matrix")
-        if x_in.dtype != object and np.issubdtype(x_in.dtype, np.floating) and np.isnan(x_in).any():
-            raise ValueError("NA values are not allowed.")
-    if not is_sparse:
-        x = torch.as_tensor(x_in).to(**tens)
+    d = _as_design_matrix(x, dtype, dev, hybrid=hybrid, hybrid_coverage=hybrid_coverage,
+                          hybrid_max_head=hybrid_max_head, hybrid_memory_budget=hybrid_memory_budget,
+                          head_dtype=head_dtype, batch_size=batch_size, g_sum_refresh_every=g_sum_refresh_every,
+                          standardize=standardize, sample_weight=sample_weight)
+    x, is_sparse, prebuilt, col_perm, layout_plan = d.x, d.is_sparse, d.prebuilt, d.col_perm, d.layout_plan
+    head_nnz, pre_std, pre_row_sq = d.head_nnz, d.pre_std, d.pre_row_sq
+    hybrid_max_head, hybrid_coverage = d.max_head, d.coverage
     n_samples, n_features = x.shape
     if n_samples == 0:
         raise ValueError("the predictor matrix (x) is empty.")
@@ -346,53 +544,8 @@ def fit(
         raise ValueError("lambda path cannot be of zero length.")
 
     # ---- penalty factors / exclusions / box constraints (glmnet style) ----
-    excl_mask = None
-    if exclude is not None:
-        ex = np.atleast_1d(np.asarray(exclude, dtype=np.int64)).ravel()
-        if ex.size and (ex.min() < 0 or ex.max() >= n_features):
-            raise ValueError("exclude indices must be in [0, n_features)")
-        excl_mask = np.zeros(n_features, dtype=bool)
-        excl_mask[ex] = True
-
-    pf_np = None
-    if penalty_factor is not None:
-        pf_np = np.asarray(penalty_factor, dtype=np.float64).ravel()
-        if pf_np.shape != (n_features,):
-            raise ValueError("penalty_factor must have one entry per feature")
-        if (pf_np < 0).any() or np.isnan(pf_np).any():
-            raise ValueError("penalty_factor entries must be nonnegative")
-        inf_pf = np.isinf(pf_np)
-        if inf_pf.any():  # glmnet: infinite penalty factor == exclude
-            excl_mask = inf_pf if excl_mask is None else (excl_mask | inf_pf)
-            pf_np = np.where(inf_pf, 1.0, pf_np)
-
-    lower_np = upper_np = None
-    if lower_limits is not None:
-        lower_np = np.broadcast_to(np.asarray(lower_limits, dtype=np.float64), (n_features,)).copy()
-        if (lower_np > 0).any():
-            raise ValueError("lower_limits must be <= 0 (coefficients start at zero)")
-    if upper_limits is not None:
-        upper_np = np.broadcast_to(np.asarray(upper_limits, dtype=np.float64), (n_features,)).copy()
-        if (upper_np < 0).any():
-            raise ValueError("upper_limits must be >= 0 (coefficients start at zero)")
-
-    if col_perm is not None:  # user vectors are in the original column order
-        if pf_np is not None:
-            pf_np = pf_np[col_perm]
-        if excl_mask is not None:
-            excl_mask = excl_mask[col_perm]
-        if lower_np is not None:
-            lower_np = lower_np[col_perm]
-        if upper_np is not None:
-            upper_np = upper_np[col_perm]
-
-    if pf_np is not None:
-        # rescale: mean over non-excluded features = 1
-        sel = ~excl_mask if excl_mask is not None else np.ones(n_features, bool)
-        if sel.any():
-            m = float(pf_np[sel].mean())
-            if m > 0:
-                pf_np = pf_np / m
+    excl_mask, pf_np, lower_np, upper_np = _feature_constraints(n_features, exclude, penalty_factor, lower_limits,
+                                                                upper_limits, col_perm)
 
     lam_col_mult = None
     if pf_np is not None or excl_mask is not None:
@@ -408,32 +561,10 @@ def fit(
     n_classes = fam.n_classes
 
     if family == "poisson":
-        # data-dependent curvature bound for the exp link, rounded up to a
-        # power of two
-        if poisson_smoothness is None:
-            ym = y_enc[:, 0]
-            bound = max(float(ym.max()) * 2.0, float(ym.mean()) * 4.0, 2.0)
-        else:
-            bound = float(poisson_smoothness)
-        fam = get_family("poisson", smoothness=float(2.0 ** np.ceil(np.log2(bound))))
+        fam = _poisson_family(y_enc, poisson_smoothness)
 
     # ---- linear-predictor offset ----
-    offset_arr = None
-    offset_arr_internal = None
-    if offset is not None:
-        offset_arr = np.asarray(offset, dtype=np.float64)
-        if offset_arr.ndim == 1:
-            offset_arr = offset_arr.reshape(-1, 1)
-        kk = n_classes if family in ("multinomial", "mgaussian") else 1
-        if offset_arr.shape != (n_samples, kk):
-            want = f"({n_samples},)" if kk == 1 else f"({n_samples}, {kk})"
-            raise ValueError(f"offset must have shape {want} for family '{family}'")
-        if np.isnan(offset_arr).any():
-            raise ValueError("NA values are not allowed.")
-        if family in ("gaussian", "mgaussian"):
-            y_enc = y_enc - offset_arr  # identity link: absorb into the response
-        else:
-            offset_arr_internal = offset_arr
+    offset_arr, offset_arr_internal, y_enc = _link_offset(offset, family, n_classes, n_samples, y_enc)
 
     y_dev = torch.as_tensor(y_enc).to(**tens)
 
@@ -466,17 +597,12 @@ def fit(
             xc_np = m_o[col_perm] / s_o[col_perm]
             xc_np[: x.n_head] = 0.0
             xc = torch.as_tensor(xc_np, **f64).to(dtype)
-        elif isinstance(x, HybridCSR):
-            x_center, x_scale = x.column_stats(w_stats)
-            x, xc = x.standardize(x_center, x_scale, donate=not prebuilt)  # a head fit built is overwritten
-            xc = xc.to(dtype)
-        elif is_sparse:
-            x_center, x_scale = x.column_stats(w_stats)
-            x = x.scale_columns(x_scale)
-            xc = (x_center / x_scale).to(dtype)
         else:
-            x_center, x_scale = _weighted_column_stats(x, weights)
-            x = ((x.to(torch.float64) - x_center) / x_scale).to(dtype)
+            # as the JAX package: a sparse layout's statistics take the f64
+            # sample weights (or none), a dense one's the solver's; a head
+            # fit built is overwritten
+            x, xc, x_center, x_scale = _standardize_design(x, w_stats if is_sparse else weights, dtype,
+                                                           donate=not prebuilt)
     else:
         x_center = torch.zeros((n_features,), **f64)
         x_scale = torch.ones((n_features,), **f64)
@@ -500,23 +626,12 @@ def fit(
 
     # ---- coefficient bounds on the standardized solver scale; excluded
     # features are pinned at [0, 0] ----
-    box = None
     pf_dev = None if pf_np is None else torch.as_tensor(pf_np).to(**tens)
-    if lower_np is not None or upper_np is not None or excl_mask is not None:
-        lo = lower_np if lower_np is not None else np.full(n_features, -np.inf)
-        hi = upper_np if upper_np is not None else np.full(n_features, np.inf)
-        if excl_mask is not None:
-            lo, hi = lo.copy(), hi.copy()
-            lo[excl_mask] = 0.0
-            hi[excl_mask] = 0.0
-        if (lo > hi).any():
-            raise ValueError("lower_limits must be <= upper_limits")
-        xs_np = x_scale.cpu().numpy()
-        ys_np = y_scale.cpu().numpy()
-        box = (
-            torch.as_tensor(lo[None, :] * xs_np[None, :] / ys_np[:, None]).to(**tens),
-            torch.as_tensor(hi[None, :] * xs_np[None, :] / ys_np[:, None]).to(**tens),
-        )
+    box = None
+    lo_hi = _box_limits(n_features, lower_np, upper_np, excl_mask)
+    if lo_hi is not None:
+        xs_np, ys_np = x_scale.cpu().numpy(), y_scale.cpu().numpy()
+        box = tuple(torch.as_tensor(v[None, :] * xs_np[None, :] / ys_np[:, None]).to(**tens) for v in lo_hi)
 
     # ---- lambda path ----
     if lambda_path is None:
@@ -542,9 +657,7 @@ def fit(
     if pre_row_sq is not None:
         max_sq = float(np.max(pre_row_sq * (weights_np > 0)))
     else:
-        # a sparse layout's norms are those of its scaled, centered rows
-        per_row = x.row_squared_norms(xc) if is_sparse else torch.sum(x.to(torch.float64) ** 2, dim=1)
-        max_sq = float(torch.max(per_row * (weights > 0).to(torch.float64)))
+        max_sq = _max_sq_row_norm(x, xc, (weights > 0).to(torch.float64))
     top_sq = float(power_iteration_sq_norm(x, seed=seed, x_center_scaled=xc)) / w_total if batch_size > 1 else None
     gammas = saga_step_sizes(max_sq, top_sq, l2s, w_total, batch_size, intercept, fam.L_scaling)
     if head_dtype == torch.int8 and isinstance(x, HybridCSR):
@@ -555,31 +668,10 @@ def fit(
 
     # ---- pad rows to a multiple of batch_size ----
     n_pad = ((n_samples + batch_size - 1) // batch_size) * batch_size
-    # ---- K1 gate: dense f32 problems within the Hopper gate run each epoch
-    # as one kernel launch; by default on CUDA only (on the CPU the twin
-    # runs on explicit opt-in, as interpret mode does in the JAX package).
-    # Box limits stay on the step path.
-    ek_ok = (
-        use_epoch_kernel is not False
-        and not is_sparse
-        and not debug
-        and warm_state is None
-        and box is None
-        and dtype == torch.float32
-        and epoch_kernel.supported(n_pad, n_features, n_classes, batch_size, with_offs=offs64 is not None)
-        and (use_epoch_kernel is True or dev.type == "cuda")
-    )
-    if sampling is None:
-        # with a warm_state stay with permutation: block mode pre-shuffles
-        # rows and would misalign a g_mem saved under another order
-        if warm_state is not None:
-            sampling = "permutation"
-        elif ek_ok:
-            sampling = "block"
-        else:
-            sampling = "block" if n_samples >= 32768 else "permutation"
-    if sampling not in ("permutation", "block"):
-        raise ValueError("sampling must be 'permutation' or 'block'")
+    ek_ok, sampling = _epoch_kernel_gate(
+        use_epoch_kernel, sampling, dev, dtype, n_samples, n_pad, n_features, n_classes, batch_size,
+        dense=not is_sparse, plain_only=debug or box is not None, with_offs=offs64 is not None,
+        warm=warm_state is not None)
     if sampling == "block":
         # shuffle rows once (seed-deterministic, as in the JAX package) so
         # contiguous blocks are random samples even for ordered input
@@ -666,11 +758,30 @@ def fit(
         use_tail_kernel=use_tail_kernel,
     )
 
+    if screen == "auto":
+        # regime-aware screening; ineligible fits (ridge, debug) run the
+        # unscreened schedule: "auto" chooses, it never errors
+        screen = "auto" if (alpha > 0.0 and not debug) else False
+    if screen and (alpha == 0.0 or debug):
+        raise ValueError("screen=True requires a single device, alpha > 0, and debug=False")
+
     t0 = time.perf_counter()
-    state, n_iter, results = fit_path(
-        x, y_proc, weights, gammas, l1s, l2s, thresh, state0, fam, penalty, config,
-        offs=offs_dev, pf=pf_dev, box=box, seed=seed, xc=xc,
-    )
+    scr_stats = None
+    if screen:
+        w_scr, b_scr, dev_scr, it_scr, codes_scr, n_iter, scr_stats = screened_path(
+            x, y_proc, weights, gammas, l1s, l2s, thresh, fam, penalty, config, xc=xc, pf=pf_dev, box=box,
+            always_inactive=excl_mask, offs=offs_dev,
+            intercept0=None if offs_dev is None else b0_offs.cpu().numpy(), auto_full_tail=screen == "auto",
+            seed=seed,
+        )
+        state = None
+        results = SimpleNamespace(w=w_scr, intercept=b_scr, deviance=dev_scr, return_codes=codes_scr,
+                                  losses=np.zeros((len(l1s), 0)), clamp_gap=np.zeros(len(l1s)))
+    else:
+        state, n_iter, results = fit_path(
+            x, y_proc, weights, gammas, l1s, l2s, thresh, state0, fam, penalty, config,
+            offs=offs_dev, pf=pf_dev, box=box, seed=seed, xc=xc,
+        )
     wall = time.perf_counter() - t0  # fit_path returns host arrays: synced
 
     # ---- rescale to original units ----
@@ -686,11 +797,21 @@ def fit(
         "device": str(dev),
         "epoch_kernel": config.use_epoch_kernel,
         # K1 launches over the path (each a chunk of epochs, with one sync)
-        "epoch_chunks": int(results.n_chunks.sum()),
-        "head_kernel": not config.use_epoch_kernel and uses_head_kernel(x, fam, config),
-        "tail_kernel": isinstance(x, HybridCSR) and x.blk_tail is not None and use_tail_kernel,
+        "epoch_chunks": scr_stats["epoch_chunks"] if screen else int(results.n_chunks.sum()),
+        "head_kernel": scr_stats["head_kernel"] if screen else (not config.use_epoch_kernel
+                                                                and uses_head_kernel(x, fam, config)),
+        # K3 / K4 ran: on a screened path only where a group fitted the full layout
+        "tail_kernel": scr_stats["tail_kernel"] if screen else (isinstance(x, HybridCSR) and x.blk_tail is not None
+                                                                and use_tail_kernel),
         "layout_plan": None if layout_plan is None else asdict(layout_plan),
     }
+    if screen:
+        # the work basis: the elements the solver streamed on its active-set
+        # subsets; the full design's figure stays as coverage
+        stats["screening"] = scr_stats
+        stats["coverage_nnz"] = stats["nnz"]
+        stats["nnz"] = scr_stats["work_elems"]
+        stats["nnz_per_s"] = scr_stats["work_elems"] / max(wall, 1e-9)
     b_path = np.asarray(results.intercept, dtype=np.float64)  # (nl, k)
     x_scale_np = x_scale.cpu().numpy()
     x_center_np = x_center.cpu().numpy()

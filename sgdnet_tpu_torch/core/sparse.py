@@ -359,10 +359,12 @@ class BlockCOO:
                                device=tail.values.device)
 
     @classmethod
-    def from_arrays(cls, rows, cols, vals, batch: int, n_cols: int, counts=None, device="cpu") -> "BlockCOO":
-        """BlockCOO from its three packed (n_blocks, E) arrays (numpy).
+    def from_arrays(cls, rows, cols, vals, batch: int, n_cols: int, counts=None, device=None) -> "BlockCOO":
+        """BlockCOO from its three packed (n_blocks, E) arrays (numpy), on
+        `device` (None: the card, RuntimeError without one).
         Without `counts`, a block's true prefix ends at its last entry that
         is not (0, 0, 0.0): a true entry of that form adds nothing."""
+        dev = resolve_device(device)
         rows, cols, vals = (np.asarray(a) for a in (rows, cols, vals))
         n_blocks, E = rows.shape
         if counts is None:
@@ -390,9 +392,20 @@ class BlockCOO:
         heavy_cols = np.full((n_blocks, max(max_heavy, 1)), -1, np.int32)
         for b, h in enumerate(heavy):
             heavy_cols[b, : len(h)] = h
-        t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
+        t = lambda a: torch.as_tensor(np.array(a), device=dev)  # noqa: E731
         return cls(t(rows), t(cols), t(vals), batch, n_cols, t(counts), t(row_ptr), t(rows_by_col),
                    t(vals_by_col), t(col_seg), t(heavy_cols), max_heavy)
+
+    def scale_columns(self, scale: torch.Tensor) -> "BlockCOO":
+        """The same packing with every value divided by its column's scale,
+        on the device: bit for bit what `from_padded` packs from the tail's
+        `PaddedCSR.scale_columns(scale)`.  The entries in column order are
+        the scaled values gathered by a stable sort of the columns, pad
+        entries last."""
+        vals = self.vals / scale.to(self.vals.dtype)[self.cols.long()]
+        live = torch.arange(self.cols.shape[1], device=self.cols.device)[None, :] < self.counts[:, None]
+        order = torch.sort(torch.where(live, self.cols, self.n_cols), dim=1, stable=True).indices
+        return replace(self, vals=vals, vals_by_col=torch.gather(vals, 1, order))
 
 
 # ---------------------------------------------------------------------------

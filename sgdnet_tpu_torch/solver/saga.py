@@ -436,12 +436,22 @@ class PathResults(NamedTuple):
     n_chunks: np.ndarray  # (n_lambda,) int32
 
 
-def default_order_fn(seed: int, n: int):
+def order_count(config: SolverConfig, n_pad: int) -> int:
+    """What an order permutes: the n_pad / B blocks (block sampling, and
+    K1, which takes block orders) or the n_pad rows."""
+    return n_pad // config.batch_size if config.sampling == "block" or config.use_epoch_kernel else n_pad
+
+
+def default_order_fn(seed: int, n: int, salt: int | None = None):
     """Permutations of range(n), one per (lam_idx, attempt, epoch), each
-    from its own `torch.Generator` seeded from those indices and `seed`."""
+    from its own `torch.Generator` seeded from those indices and `seed`;
+    a caller that tells its fit_path calls apart by a `salt` (screening's
+    λ groups, KKT rounds and retries) gets orders seeded from it too, as
+    the JAX package folds it into its key."""
+    head = [seed] if salt is None else [seed, salt]
 
     def order_fn(lam_idx: int, attempt: int, epoch: int) -> torch.Tensor:
-        s = np.random.SeedSequence([seed, lam_idx, attempt, epoch]).generate_state(1, np.uint64)[0]
+        s = np.random.SeedSequence(head + [lam_idx, attempt, epoch]).generate_state(1, np.uint64)[0]
         return torch.randperm(n, generator=torch.Generator().manual_seed(int(s)))
 
     return order_fn
@@ -502,12 +512,10 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     l2s = np.asarray(l2s, dt).reshape(-1)
     tol = dt(tol)
     n_pad = y.shape[0]
-    B = config.batch_size
     w_total = float(torch.clamp(torch.sum(weights), min=1e-12))
     k, p = state0.w.shape
     if order_fn is None:
-        blocks = config.sampling == "block" or config.use_epoch_kernel
-        order_fn = default_order_fn(seed, n_pad // B if blocks else n_pad)
+        order_fn = default_order_fn(seed, order_count(config, n_pad))
 
     if config.use_epoch_kernel:
         # small-problem path: state rides in the kernel's padded layout

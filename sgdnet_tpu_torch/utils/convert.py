@@ -21,17 +21,20 @@ import torch
 from sgdnet_tpu_torch.api.fit import SgdnetFit, as_torch_dtype
 from sgdnet_tpu_torch.core.sparse import BlockCOO, HeadNNZ, HybridCSR, PaddedCSR
 from sgdnet_tpu_torch.solver.saga import SagaState
+from sgdnet_tpu_torch.utils.device import resolve_device
 
 STATE_FIELDS = SagaState._fields
 
 
-def state_from_numpy(d, dtype=None, device="cpu") -> SagaState:
-    """SagaState from a mapping of the five fields (numpy arrays)."""
+def state_from_numpy(d, dtype=None, device=None) -> SagaState:
+    """SagaState from a mapping of the five fields (numpy arrays), on
+    `device` (None: the card, RuntimeError without one)."""
     missing = [f for f in STATE_FIELDS if f not in d]
     if missing:
         raise KeyError(f"state is missing fields {missing}")
     conv = {} if dtype is None else {"dtype": as_torch_dtype(dtype)}
-    return SagaState(*(torch.as_tensor(np.asarray(d[f])).to(device=device, **conv) for f in STATE_FIELDS))
+    dev = resolve_device(device)
+    return SagaState(*(torch.as_tensor(np.asarray(d[f])).to(device=dev, **conv) for f in STATE_FIELDS))
 
 
 def fit_from_numpy(**fields) -> SgdnetFit:
@@ -63,12 +66,15 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def layout_from_jax(layout, device="cpu"):
+def layout_from_jax(layout, device=None):
     """The port's layout holding the same arrays as a JAX package layout
     (dispatched on the class name: PaddedCSR, BlockCOO, HeadNNZ or
     HybridCSR; a JAX BlockCOO's true-entry counts are recovered from its
-    (0, 0, 0) pad entries)."""
+    (0, 0, 0) pad entries), on `device` (None: the card, RuntimeError
+    without one; a HeadNNZ stays on the host)."""
     kind = type(layout).__name__
+    if kind != "HeadNNZ":
+        device = resolve_device(device)
     if kind == "PaddedCSR":
         return PaddedCSR(_tensor(layout.indices, device), _tensor(layout.values, device),
                          _tensor(layout.nnz, device), int(layout.n_rows), int(layout.n_cols))

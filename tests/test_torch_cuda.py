@@ -462,3 +462,93 @@ def test_block_colsum_kernels_match_twin(dev, n_pad, D, batch):
         assert pk.block_colsum_pipelined.launches == before + 1
         _colsum_ok(out, pk.block_colsum_reference(head, start, batch, chunk_rows), head, start, batch)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# cross-validation and screening through the kernels
+# ---------------------------------------------------------------------------
+
+
+def _fold_launches(monkeypatch):
+    """Record the K1-K4 launches of each fold of parallel/cv.py."""
+    from sgdnet_tpu_torch.parallel import cv as pcv
+
+    wrappers = (ek.saga_epochs, hk.fused_head_step_at, tk.coo_tail_forward, tk.coo_tail_outer)
+    folds, real = [], pcv._fold_fit_and_score
+
+    def counted(*a, **kw):
+        before = [w.launches for w in wrappers]
+        out = real(*a, **kw)
+        folds.append([w.launches - b for w, b in zip(wrappers, before)])
+        return out
+
+    monkeypatch.setattr(pcv, "_fold_fit_and_score", counted)
+    return folds
+
+
+def test_cv_through_epoch_kernel(dev, monkeypatch):
+    """cv_fit on the card, serial and fold-parallel: every fit and every
+    fold runs K1 (the default for a dense f32 fit), and the two agree as
+    tests/test_parallel.py holds the JAX package's (rtol 0.05, atol 1e-3;
+    lambda_min equal)."""
+    x, y = st.load_heart()
+    kw = dict(family="binomial", nfolds=3, nlambda=8, thresh=1e-5, device=dev)
+    before = ek.saga_epochs.launches
+    cs = st.cv_fit(x, y, **kw)
+    assert cs.fit.stats["epoch_kernel"] is True and ek.saga_epochs.launches - before > cs.fit.stats["epoch_chunks"]
+    folds = _fold_launches(monkeypatch)
+    cp = st.cv_fit(x, y, parallel=True, **kw)
+    assert len(folds) == 3 and all(f[0] > 0 for f in folds)
+    np.testing.assert_allclose(cp.cv_raw[0], cs.cv_raw[0], rtol=0.05, atol=1e-3)
+    assert abs(np.log(cp.lambda_min) - np.log(cs.lambda_min)) < 1e-9
+
+
+def test_fold_parallel_cv_hybrid_through_kernels(dev, monkeypatch):
+    """Fold-parallel CV on a small f32-head hybrid under block sampling:
+    every fold runs K2 (use_pallas=True), K3 and K4 on its scaled BlockCOO,
+    and the scores match the same call on plain torch ops within 1e-3
+    relative."""
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+
+    rng = np.random.default_rng(5)
+    n, p = 6000, 2500
+    wz = (np.arange(p) + 10.0) ** -1.15
+    cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random((n, 20))).clip(0, p - 1)
+    x = sp.csr_matrix((rng.normal(size=n * 20), cols.ravel(), np.arange(0, n * 20 + 1, 20)), shape=(n, p))
+    x.sum_duplicates()
+    beta = rng.normal(size=p) * (rng.random(p) < 0.05)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x @ beta)))).astype(float)
+    kw = dict(family="binomial", batch_size=1024, sampling="block", hybrid=True, hybrid_max_head=256,
+              hybrid_coverage=0.8, hybrid_head_dtype="float32", maxit=60, device=dev)
+    lam = st.fit(x, y, nlambda=4, lambda_min_ratio=0.1, **kw).lambda_
+    foldid = np.arange(n) % 3
+    folds = _fold_launches(monkeypatch)
+    s_k = parallel_fold_scores(x, y, foldid, 3, 1.0, lam, use_pallas=True, **kw)
+    assert len(folds) == 3 and all(f[1] > 0 and f[2] > 0 and f[3] > 0 for f in folds)
+    s_p = parallel_fold_scores(x, y, foldid, 3, 1.0, lam, use_pallas=False, use_tail_kernel=False, **kw)
+    assert all(sum(f[1:]) == 0 for f in folds[3:])
+    assert np.isfinite(s_k).all()
+    np.testing.assert_allclose(s_k, s_p, rtol=1e-3, atol=0)
+
+
+def test_screened_fit_runs_head_kernel_on_subsets(dev):
+    """A screened dense fit with use_pallas=True under block sampling: its
+    column subsets (dense f32) go through K2, no group falls back to the
+    full layout, and it matches the unscreened fit at the tolerance of
+    tests/test_screening.py (2e-3 x scale)."""
+    rng = np.random.default_rng(6)
+    n, p = 8192, 1024
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    beta = np.zeros(p)
+    beta[rng.choice(p, 10, replace=False)] = rng.normal(size=10) * 2
+    y = x @ beta + rng.normal(size=n)
+    kw = dict(nlambda=8, lambda_min_ratio=0.1, thresh=1e-5, maxit=500, batch_size=1024, sampling="block",
+              use_pallas=True, use_epoch_kernel=False, device=dev)
+    full = st.fit(x, y, **kw)
+    before = hk.fused_head_step_at.launches
+    scr = st.fit(x, y, screen=True, **{**kw, "nlambda": None, "lambda_path": full.lambda_})
+    s = scr.stats["screening"]
+    assert scr.stats["head_kernel"] is True and hk.fused_head_step_at.launches > before
+    assert s["full_fallback_groups"] == 0 and s["mean_active"] < 0.35 * p
+    scale = max(1.0, np.abs(full.beta).max())
+    assert np.abs(scr.beta - full.beta).max() / scale < 2e-3

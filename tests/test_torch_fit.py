@@ -157,7 +157,7 @@ def test_warm_state_roundtrip(tmp_path):
     fj1 = jst.fit(x, y, lambda_path=lams[:4], **kw)
     save_state(str(tmp_path / "state.npz"), fj1.final_state)
     with np.load(tmp_path / "state.npz") as z:
-        warm = state_from_numpy(z)
+        warm = state_from_numpy(z, device="cpu")
     fj2 = jst.fit(x, y, lambda_path=lams[4:], warm_state=fj1.final_state, **kw)
     ft2 = tst.fit(x, y, lambda_path=lams[4:], warm_state=warm, device="cpu", **kw)
     assert ft2.stats["epoch_kernel"] is False  # a warm start runs the step path
@@ -197,7 +197,7 @@ def test_fit_accepts_padded_csr_directly(monkeypatch):
 
     xs, y, jcsr = _padded_problem()
     kw = dict(nlambda=5, dtype=np.float64)
-    tcsr = layout_from_jax(jcsr)
+    tcsr = layout_from_jax(jcsr, device="cpu")
     ft = tst.fit(tcsr, y, device="cpu", **kw)
     f_scipy = tst.fit(xs, y, hybrid=False, device="cpu", **kw)
     np.testing.assert_allclose(ft.beta, f_scipy.beta, atol=1e-10)
@@ -231,7 +231,7 @@ def test_prebuilt_hybrid_keeps_its_column_order():
     kw = dict(family="binomial", alpha=0.5, nlambda=4, lambda_min_ratio=0.1, batch_size=32, thresh=1e-5,
               maxit=5000, dtype=np.float64)
     fj = jst.fit(jh, y, **kw)
-    ft = tst.fit(layout_from_jax(jh), y, device="cpu", **kw)
+    ft = tst.fit(layout_from_jax(jh, device="cpu"), y, device="cpu", **kw)
     assert ft.stats["layout"]["kind"] == "hybrid" and ft.stats["layout"]["head_width"] == jh.n_head
     scale = max(1.0, np.abs(fj.beta).max())
     np.testing.assert_allclose(ft.beta, fj.beta, atol=1e-3 * scale)
@@ -271,7 +271,7 @@ def test_prebuilt_f32_hybrid_quantized_on_the_device():
     host = tst.fit(xs, y, nlambda=6, hybrid=True, hybrid_max_head=32, hybrid_coverage=0.8, device="cpu", **kw)
     assert host.stats["layout"]["head_dtype"] == "torch.int8"
     jh, perm = JHybridCSR.split_columns(xs, coverage=0.8, max_head=32, dtype=jnp.float32)
-    th = layout_from_jax(jh)
+    th = layout_from_jax(jh, device="cpu")
     dev = tst.fit(th, y, lambda_path=host.lambda_, device="cpu", **kw)
     assert dev.stats["layout"]["head_dtype"] == "torch.int8" and th.head.dtype == torch.float32  # not in place
     beta_dev = np.empty_like(dev.beta)
@@ -349,16 +349,16 @@ def test_padded_csr_newx_no_densify():
     ft = _converted(fj)
     dense = ft.predict(x)
     jcsr = JPaddedCSR.from_scipy(sp.csr_matrix(x), dtype=np.float64)
-    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr)), dense, rtol=1e-8)
-    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr)), fj.predict(jcsr), rtol=1e-8)
+    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr, device="cpu")), dense, rtol=1e-8)
+    np.testing.assert_allclose(ft.predict(layout_from_jax(jcsr, device="cpu")), fj.predict(jcsr), rtol=1e-8)
     # a HybridCSR newx predicts in its own column order
     jh, perm = JHybridCSR.split_columns(sp.csr_matrix(x), coverage=0.6, max_head=4, dtype=np.float64)
     fp = _converted(fj)
     fp.beta = fj.beta[:, :, perm]
-    np.testing.assert_allclose(fp.predict(layout_from_jax(jh)), dense, rtol=1e-8)
+    np.testing.assert_allclose(fp.predict(layout_from_jax(jh, device="cpu")), dense, rtol=1e-8)
     # multinomial: class by class
     xw, yw = tst.load_wine()
     fjw = _jax_fit("wine")[3]
     jw = JPaddedCSR.from_scipy(sp.csr_matrix(xw[:30]), dtype=np.float64)
-    np.testing.assert_allclose(_converted(fjw).predict(layout_from_jax(jw), type="response"),
+    np.testing.assert_allclose(_converted(fjw).predict(layout_from_jax(jw, device="cpu"), type="response"),
                                fjw.predict(xw[:30], type="response"), rtol=1e-8)

@@ -7,10 +7,12 @@ import isolation and the keywords outside the slice.
     where each kernel's plain twin runs: same batch orders, so the paths
     agree at reassociation level, 1e-4 x scale, as tests/test_epoch_kernel.py
     and tests/test_pallas.py hold the Pallas kernels;
-  * `import sgdnet_tpu_torch` never brings in jax or sgdnet_tpu;
-  * `device=None` means the card: without one, fit raises (every CPU run
-    here asks for device="cpu");
-  * keywords outside the ported slices raise NotImplementedError.
+  * `import sgdnet_tpu_torch` never brings in jax or sgdnet_tpu, and the
+    port runs CV and screening with both blocked;
+  * `device=None` means the card: without one, fit, the layout constructors
+    and the converters raise (every CPU run here asks for device="cpu");
+  * keywords outside the ported slices raise NotImplementedError; the
+    screen keywords, ported now, fit and match the unscreened fit.
 """
 
 import os
@@ -191,20 +193,78 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
+def test_port_runs_with_jax_blocked():
+    """CV, fold-parallel CV and a screened fit with `jax` and `sgdnet_tpu`
+    made unimportable (None in sys.modules) in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sgdnet_tpu'] = None\n"
+        "import numpy as np, sgdnet_tpu_torch as st\n"
+        "import sgdnet_tpu_torch.api.cv, sgdnet_tpu_torch.parallel.cv, sgdnet_tpu_torch.solver.screening\n"
+        "x, y = st.load_heart()\n"
+        "cv = st.cv_fit(x[:120], y[:120], family='binomial', nfolds=3, nlambda=3, device='cpu')\n"
+        "cvp = st.cv_fit(x[:120], y[:120], family='binomial', nfolds=3, nlambda=3, parallel=True, device='cpu')\n"
+        "assert np.isfinite(cv.cv_raw[0]).all() and np.isfinite(cvp.cv_raw[0]).all()\n"
+        "f = st.fit(x, y, family='binomial', nlambda=3, screen=True, device='cpu')\n"
+        "assert f.stats['screening']['kkt_clean'] and np.isfinite(f.beta).all()\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _cv_fit_object():
+    """A CvFit with nothing fitted (its plot needs none)."""
+    from sgdnet_tpu_torch.api.cv import CvFit
+
+    return CvFit(alpha=np.ones(1), lambda_=[], cv_summary={}, cv_raw=[], name="", fit=None, fits=[], alpha_min=1.0,
+                 lambda_min=0.1, lambda_1se=0.1, type_measure="deviance")
+
+
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
+    ("fit", dict(mesh=object())),
+    ("fit", dict(mesh=object(), hybrid_max_head="auto")),
+    ("fit", dict(lambda_chunk=4, sparse_mode="gather")),
+    ("fit", dict(lambda_chunk=4)),
+    ("cv_fit", dict(parallel=True, cv_mesh=object())),
+    ("cv_fit", dict(mesh=object())),  # serial CV hands mesh to each fit
+    ("parallel_fold_scores", dict(mesh=object())),
+    ("CvFit.plot", {}),
+])
+def test_out_of_slice_keywords_raise(kw):
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+
+    entry, kwargs = kw
+    x, y = tst.load_heart()
+    calls = {
+        "fit": lambda: tst.fit(x, y, family="binomial", device="cpu", **kwargs),
+        "cv_fit": lambda: tst.cv_fit(x, y, family="binomial", nfolds=3, device="cpu", **kwargs),
+        "parallel_fold_scores": lambda: parallel_fold_scores(x, y, np.arange(len(y)) % 3, 3, 1.0, [0.1],
+                                                             family="binomial", device="cpu", **kwargs),
+        "CvFit.plot": lambda: _cv_fit_object().plot(),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("kw", [
     dict(screen=True),
     dict(screen="auto"),
     dict(screen="auto", hybrid=True),
     dict(screen=True, hybrid_max_head="auto", hybrid_head_dtype="int8"),
-    dict(mesh=object(), hybrid_max_head="auto"),
-    dict(lambda_chunk=4, sparse_mode="gather"),
-    dict(lambda_chunk=4),
 ])
-def test_out_of_slice_keywords_raise(kw):
+def test_screen_keywords_now_fit(kw):
+    """The screen keyword sets that raised before screening was ported: each
+    fits now and matches the unscreened fit on the same path at the
+    tolerance of tests/test_screening.py (2e-3 x scale)."""
     x, y = tst.load_heart()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.fit(x, y, family="binomial", device="cpu", **kw)
+    common = dict(family="binomial", nlambda=8, thresh=1e-6, maxit=2000, device="cpu")
+    plain = tst.fit(x, y, **{**common, **{k: v for k, v in kw.items() if k != "screen"}})
+    f = tst.fit(x, y, **{**common, **kw, "nlambda": None, "lambda_path": plain.lambda_})
+    assert f.stats["screening"]["kkt_clean"] is True
+    scale = max(1.0, np.abs(plain.beta).max())
+    np.testing.assert_allclose(f.beta, plain.beta, atol=2e-3 * scale)
 
 
 def test_scipy_sparse_input_raises():
@@ -238,6 +298,34 @@ def test_fit_without_a_card_raises(monkeypatch):
         tst.fit(sp.csr_matrix(x), y, family="binomial", nlambda=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         PaddedCSR.from_scipy(sp.csr_matrix(x))
+
+
+def test_converters_and_cv_without_a_card_raise(monkeypatch):
+    """state_from_numpy, layout_from_jax, BlockCOO.from_arrays and the CV
+    entry points default to the card too: without one they raise
+    RuntimeError, and with device="cpu" they build on the CPU."""
+    import scipy.sparse as sp
+    from sgdnet_tpu.core.sparse import PaddedCSR as JPaddedCSR
+
+    from sgdnet_tpu_torch.core.sparse import BlockCOO
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+    from sgdnet_tpu_torch.utils.convert import layout_from_jax, state_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y = tst.load_heart()
+    jcsr = JPaddedCSR.from_scipy(sp.csr_matrix(x[:8]), dtype=np.float64)
+    state = {f: np.zeros((8, 1)) for f in ("w", "intercept", "g_mem", "g_sum", "g_sum_intercept")}
+    packed = (np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32), np.zeros((1, 4)), 4, 3)
+    for call in (lambda **d: layout_from_jax(jcsr, **d), lambda **d: state_from_numpy(state, **d),
+                 lambda **d: BlockCOO.from_arrays(*packed, **d),
+                 lambda **d: tst.cv_fit(x, y, family="binomial", nfolds=3, nlambda=2, **d),
+                 lambda **d: parallel_fold_scores(x, y, np.arange(len(y)) % 3, 3, 1.0, [0.1], family="binomial",
+                                                  **d)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert layout_from_jax(jcsr, device="cpu").values.device.type == "cpu"
+    assert state_from_numpy(state, device="cpu").w.device.type == "cpu"
+    assert BlockCOO.from_arrays(*packed, device="cpu").vals.device.type == "cpu"
 
 
 def test_fit_validation():

@@ -98,7 +98,7 @@ def test_padded_csr_matches_jax(dtype):
     t = ts.PaddedCSR.from_scipy(x, dtype=getattr(torch, dtype), **CPU)
     for f in ("indices", "values", "nnz"):
         _same(getattr(t, f), getattr(j, f), f)
-    c = layout_from_jax(j)
+    c = layout_from_jax(j, device="cpu")
     for f in ("indices", "values", "nnz"):
         _same(getattr(c, f), getattr(j, f), f)
 
@@ -141,7 +141,7 @@ def test_split_columns_matches_jax(case):
     else:
         assert th.head.dtype == {None: getattr(torch, dt), "bfloat16": torch.bfloat16, "int8": torch.int8}[hd]
         _same(th.head, jh.head, "head")
-        c = layout_from_jax(jh)
+        c = layout_from_jax(jh, device="cpu")
         _same(c.head, jh.head, "carried head")
     if hd == "int8":
         _same(th.head_scale, jh.head_scale, "head_scale")
@@ -182,7 +182,7 @@ def _layouts(head="f64", std=True, n_pad=384, B=64):
     jh = jh.pad_rows(n_pad)
     jh = js.HybridCSR(jh.head, jh.tail, jh.n_rows, jh.n_cols, blk_tail=js.BlockCOO.from_padded(jh.tail, B),
                       head_scale=jh.head_scale)
-    return jh, layout_from_jax(jh), xc, x, y
+    return jh, layout_from_jax(jh, device="cpu"), xc, x, y
 
 
 def _close(a, b, tol=1e-12, name=""):
@@ -215,7 +215,7 @@ def test_hybrid_linear_algebra_matches_jax(head):
 def test_padded_csr_linear_algebra_matches_jax():
     x, _, _ = _zipf_csr()
     j = js.PaddedCSR.from_scipy(x, dtype=jnp.float64)
-    t = layout_from_jax(j)
+    t = layout_from_jax(j, device="cpu")
     rng = np.random.default_rng(3)
     w = rng.uniform(0.5, 2.0, x.shape[0])
     for jw, tw in ((None, None), (jnp.asarray(w), torch.tensor(w))):
@@ -239,7 +239,7 @@ def test_hybrid_column_stats_and_standardize_match_jax(head):
     x, _, _ = _zipf_csr()
     hd = JH[head] if head != "int8" else None
     jh, _ = js.HybridCSR.split_columns(x, coverage=0.8, max_head=128, dtype=jnp.float64, head_dtype=hd)
-    th = layout_from_jax(jh)
+    th = layout_from_jax(jh, device="cpu")
     w = np.random.default_rng(4).uniform(0.5, 2.0, x.shape[0])
     for jw, tw in ((None, None), (jnp.asarray(w), torch.tensor(w))):
         jm, jsd = jh.column_stats(jw)
@@ -271,7 +271,7 @@ def test_batch_ops_match_jax(kind, sel_kind):
             jx = jnp.asarray(x.toarray())
             tx = torch.tensor(x.toarray())
         else:
-            tx = layout_from_jax(jx)
+            tx = layout_from_jax(jx, device="cpu")
         xc = jnp.asarray(rng.normal(size=x.shape[1]) * 0.1)
     mode = "gather" if kind == "csr_gather" else "densify"
     p = jx.shape[1]
@@ -345,7 +345,7 @@ def test_fit_path_lockstep_padded_csr(mode, sampling):
     mean, sd = jx.column_stats()
     jx = jx.scale_columns(sd)
     xc = mean / sd
-    jout, tout = _lockstep_sparse((jx, layout_from_jax(jx), xc, x, y), sampling, mode=mode)
+    jout, tout = _lockstep_sparse((jx, layout_from_jax(jx, device="cpu"), xc, x, y), sampling, mode=mode)
     _assert_lockstep(jout, tout)
 
 
@@ -357,7 +357,7 @@ def test_hybrid_k2_step_matches_jax_step_pallas():
     jx = js.HybridCSR(jh.head, js.PaddedCSR(jh.tail.indices, jh.tail.values.astype(jnp.float32), jh.tail.nnz,
                                             n, p), n, p, blk_tail=js.BlockCOO.from_padded(
                       js.PaddedCSR(jh.tail.indices, jh.tail.values.astype(jnp.float32), jh.tail.nnz, n, p), B))
-    tx = layout_from_jax(jx)
+    tx = layout_from_jax(jx, device="cpu")
     rng = np.random.default_rng(6)
     yb = np.concatenate([y, np.zeros(n - len(y))])[:, None]
     wts = np.concatenate([np.ones(len(y)), np.zeros(n - len(y))])

@@ -66,7 +66,7 @@ def _tail(seed, n=192, p=300, per_row=7, B=64):
 @pytest.fixture(scope="module", params=[0, 1, 2])
 def blocks(request):
     jb, x = _tail(request.param)
-    return jb, layout_from_jax(jb), x
+    return jb, layout_from_jax(jb, device="cpu"), x
 
 
 def test_block_coo_carries_over_and_views_hold(blocks):
@@ -114,11 +114,12 @@ def test_block_coo_carries_over_and_views_hold(blocks):
 def test_heavy_and_empty_blocks_are_in_the_cases():
     """Seed 2 is the case the balanced K4 walk exists for: a column above
     2 x HEAVY_LEN entries in a block, and a block without entries."""
-    tb = layout_from_jax(_tail(2)[0])
+    tb = layout_from_jax(_tail(2)[0], device="cpu")
     per_col = np.diff(tb.col_seg.numpy(), axis=1)
     assert per_col.max() > 2 * HEAVY_LEN and tb.max_heavy >= 1
     assert tb.counts.tolist()[1] == 0 and (tb.heavy_cols[1] == -1).all() and (tb.col_seg[1] == 0).all()
-    assert layout_from_jax(_tail(0)[0]).max_heavy == 0  # and a tail without heavy columns packs a -1 column
+    # and a tail without heavy columns packs a -1 column
+    assert layout_from_jax(_tail(0)[0], device="cpu").max_heavy == 0
 
 
 def _walk_forward(tb, blk, w):
@@ -206,13 +207,14 @@ def test_counts_recovered_from_pad_entries():
     rows = np.array([[0, 1, 1, 0, 0], [0, 0, 0, 0, 0]], np.int32)
     cols = np.array([[4, 2, 4, 0, 0], [0, 0, 0, 0, 0]], np.int32)
     vals = np.array([[1.0, 2.0, 3.0, 0.0, 0.0], [0.0] * 5])
-    b = BlockCOO.from_arrays(rows, cols, vals, batch=2, n_cols=6)
+    b = BlockCOO.from_arrays(rows, cols, vals, batch=2, n_cols=6, device="cpu")
     assert b.counts.tolist() == [3, 0] and b.max_heavy == 0 and b.heavy_cols.tolist() == [[-1], [-1]]
     assert b.row_ptr.tolist() == [[0, 1, 3], [0, 0, 0]]
     assert b.col_seg.tolist() == [[0, 0, 0, 1, 1, 3, 3], [0] * 7]
     assert b.rows_by_col[0, :3].tolist() == [1, 0, 1] and b.vals_by_col[0, :3].tolist() == [2.0, 1.0, 3.0]
     with pytest.raises(ValueError, match="ascend"):
-        BlockCOO.from_arrays(np.array([[1, 0]], np.int32), np.array([[0, 1]], np.int32), np.ones((1, 2)), 2, 3)
+        BlockCOO.from_arrays(np.array([[1, 0]], np.int32), np.array([[0, 1]], np.int32), np.ones((1, 2)), 2, 3,
+                             device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +274,7 @@ def _walk_forward_lanes(tb, blk, w, G):
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
 def test_lane_group_walk_matches_twin(G):
-    tb = layout_from_jax(_tail(2)[0])  # a heavy column and an empty block
+    tb = layout_from_jax(_tail(2)[0], device="cpu")  # a heavy column and an empty block
     w = np.random.default_rng(G).normal(size=(3, tb.n_cols))
     for blk in range(tb.n_blocks):
         f = tk.coo_tail_forward_reference(tb, blk, torch.tensor(w)).numpy()
@@ -300,7 +302,7 @@ def test_lanes_formula_is_the_cu_files():
         [1, 1, 2, 2, 4, 8, 16, 16, 16, 32, 32]
     assert [coo_lanes(int(m * 106496), 106496) for m in (1.5, 4.66, 16.95)] == [1, 4, 16]
     for seed in (0, 1, 2):
-        tb = layout_from_jax(_tail(seed)[0])
+        tb = layout_from_jax(_tail(seed)[0], device="cpu")
         assert tb.lanes == coo_lanes(int(tb.counts.sum()), tb.n_blocks * tb.batch)
 
 
