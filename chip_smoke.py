@@ -54,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on plain torch ops; its K3 launches, walls, and the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
-     products are torch), held the same way on the first 5 lambdas;
+     products are torch), held the same way on the first 2 lambdas;
  11. P1 (the whole-epoch prototype probe, on K1's design) against its twin
      over 2 epochs at the probe's size (N 4224, P 128, B 32), identical
      bits over two runs, and K1 at P1's shape (the same data, starts, gamma,
@@ -70,24 +70,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      tools.bench_dma_streams);
  13. slice E: slice D's data and settings with hybrid_max_head="auto", the
      head width the port's layout planner picks from the card's constants
-     (K3 + K4 on the tail it leaves), held the same way on the first 5
+     (K3 + K4 on the tail it leaves), held the same way on the first 3
      lambdas, with the plan's predicted epoch beside the measured one; then
-     the same fit made afresh on the first 4 lambdas at the plan's width,
+     the same fit made afresh on the first 2 lambdas at the plan's width,
      half and twice it, and the plan's width again, each width's measured
      epoch beside the cost model's, which says whether the plan's width is
      the fastest of the three;
- 14. cross-validation on abalone (slice A's fit, 10 folds, the full path,
+ 14. cross-validation on abalone (slice A's fit, 3 folds, the full path,
      thresh 1e-6): serial `cv_fit` (a fit a fold) and `parallel=True` (the
      folds as weight masks over one design), both through K1, every fit
      and fold checked to launch it; the two held to each other as
      tests/test_parallel.py holds the JAX package's (cv_raw rtol 0.05, atol
-     1e-3; lambda_min equal), and two folds on the first 25 lambdas (slice
+     1e-3; lambda_min equal), and two folds on the first 5 lambdas (slice
      A's thresh) against the same folds on the plain step (1e-3
      relative);
  15. fold-parallel CV at the north-star width: slice C's data and settings
      on its 10-lambda path, 3 folds, use_pallas=True (K2 + K3 + K4 in
-     every fold), against the same call on plain torch ops (1e-3
-     relative), with each fold's wall beside slice C's unmasked path, the
+     every fold), against the same call on plain torch ops on the first 3
+     lambdas (1e-3 relative), with each fold's wall beside slice C's unmasked path, the
      call's wall and peak device memory; then serial CV of the same folds
      (a fit on each fold's rows), each fit's wall;
  16. screening: slice C with screen=True and screen="auto" on slice C's
@@ -98,10 +98,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      full_tail_from and K2's launches on the column subsets; then K2
      against its twin at every shape of this phase's K2 fits (f32, k 1:
      slice C's rows, B 8192, D 128, 256 and 512; the wide gaussian's,
-     B 4096, D 128 and 4096), timed at D 512.
-Each path (slices A-E, the three probe entry points, the CV calls and the
-screened fits) runs with the launch counts set to 0 just before it and
-read just after.  Then a JSON
+     B 4096, D 128 and 4096), timed at D 512;
+ 17. data-parallel fits (parallel/dist.py) on the card: K2 against its twin
+     on a rank's bf16 head at B 4096 and K3 / K4 on every block of slice C's
+     tail packed at B 4096; (a) DP-C1, slice C's fit on a 1-rank NCCL mesh
+     (K2 + K3 + K4, phase 9's lambdas) held to phase 9's per-lambda
+     objective (1e-4 relative), one all-reduce a step checked against K2's
+     launches, its path wall and step beside phase 9's, the step's
+     all-reduce timed alone; (d) measure_scaling at 1 rank (nnz/s); then two
+     spawned ranks share the card over gloo (every all-reduce through the
+     host, so their walls are no scaling number): (b) DP-C2, slice C's data
+     on 3 lambdas at B 4096 a rank (global 8192) through K2 + K3 + K4, held
+     to DP-C1's first 3 lambdas (1e-4 relative), w the same bits on both
+     ranks, each rank's peak device memory beside phase 9's; (c) CV-A over a
+     fold mesh of the two ranks, K1 in every fold, its scores within 1e-6
+     relative of phase 14's fold-parallel ones, lambda_min and lambda_1se
+     the same.
+Each path (slices A-E, the three probe entry points, the CV calls, the
+screened fits and the meshed fits, in each rank) runs with the launch
+counts set to 0 just before it and read just after.  Then a JSON
 line with every number, one JSON line of the kernels, the card's name and
 power limit, and last {"ok": true, "device": {...}}.  The script needs
 the repository checkout and a CUDA device; it has no CPU path.
@@ -814,13 +829,17 @@ def phase_tail(rng, dev, csr, seed):
 # ---------------------------------------------------------------------------
 
 
-def phase_k2_wide(rng, dev, seed):
+def _k2_bf16_case(rng, dev, seed, n_pad, B):
+    """K2 against its twin on a seeded bf16 head (n_pad, 16384), binomial,
+    k 1, at the last block start (the largest offsets), with identical bits
+    over two runs: (its arguments, the larger of max|dg| and max|dcorr|);
+    fails beyond g 3e-2, corr 2e-2 x max|corr|."""
     from sgdnet_tpu_torch.solver import head_kernel as hk
 
-    n_pad, D, B, k = 106496, 16384, 8192, 1
+    D, k = 16384, 1
     torch.manual_seed(seed)
     head = torch.randn((n_pad, D), device=dev, dtype=torch.bfloat16)
-    start = n_pad - B  # the last block: the largest offsets
+    start = n_pad - B
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
     w = t(rng.standard_normal((k, D)) / np.sqrt(D))
     args = (head, start, w, t(0.1 * rng.standard_normal((B, k))), t(rng.random((B, k)) < 0.5),
@@ -835,8 +854,18 @@ def phase_k2_wide(rng, dev, seed):
     print(f"  K2 binomial bf16 n_pad={n_pad} D={D} B={B} k=1 at start {start}: max|dg|={eg:.3e} "
           f"max|dcorr|={ec:.3e} (max|corr|={cmax:.3e}; bound g 3e-2, corr 2e-2*max|corr|), bits identical over "
           f"two runs: {same} {'ok' if ok else 'FAIL'}")
-    check(ok, "K2 disagrees with its twin at slice C's width")
-    check(same, "K2 gave different bits in two runs at slice C's width")
+    check(ok, f"K2 disagrees with its twin at bf16 n_pad {n_pad} B {B}")
+    check(same, f"K2 gave different bits in two runs at bf16 n_pad {n_pad} B {B}")
+    return args, max(eg, ec)
+
+
+def phase_k2_wide(rng, dev, seed):
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+
+    n_pad, B, k = 106496, 8192, 1
+    args, err = _k2_bf16_case(rng, dev, seed, n_pad, B)
+    head, start, w = args[:3]
+    D = head.shape[1]
     ms = cuda_ms(lambda: hk.fused_head_step_at(*args), 20)
     plain_ms = cuda_ms(lambda: hk.fused_head_step_reference(*args), 20)
     xb = head[start:start + B]
@@ -853,7 +882,7 @@ def phase_k2_wide(rng, dev, seed):
           f"{gbs:.1f} GB/s of head, beside the full-head torch.sum rate of phase 12; earlier "
           f"{EARLIER['k2_bf16'][0]} / {EARLIER['k2_bf16'][1]}), plain torch {plain_ms:.4f} ms, the two bf16 torch.mm "
           f"products {two_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": max(eg, ec), "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
             "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs}
 
 
@@ -906,14 +935,14 @@ def run_sparse_slice(csr, y, dev, seed, kw):
 def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
     """Where a short fit of the slice (2 lambdas, 4 epochs an attempt)
     spends the device's time: torch.profiler over the whole fit() after a
-    warm-up fit; the busy share is the kernels' device time over the fit's
+    warm-up fit (one lambda, one epoch); the busy share is the kernels' device time over the fit's
     wall, and the top kernels by device time with their calls."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.utils.device import self_device_us as dev_us
     from torch.profiler import ProfilerActivity, profile
 
     short = dict(kw, nlambda=2, maxit=4)
-    st.fit(csr, y, device=dev, seed=seed, **short)
+    st.fit(csr, y, device=dev, seed=seed, **dict(kw, nlambda=1, maxit=1))  # the warm-up: one epoch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1258,13 +1287,19 @@ class FoldClock:
         self.pcv._fold_fit_and_score = self.real
 
 
+#: phase 14's folds (and phase 17's fold mesh's): 3 of cv_fit's default 10,
+#: for the run's time
+CV_A_FOLDS = 3
+
+
 def phase_cv_abalone(dev, card, launches) -> dict:
-    """Phase 14: 10-fold CV of slice A's fit, serial (a fit a fold) and
+    """Phase 14: 3-fold CV of slice A's fit, serial (a fit a fold) and
     fold-parallel, the full path through K1; each fold's K1 launches; the
     two held to each other as tests/test_parallel.py holds the JAX
     package's (cv_raw rtol 0.05, atol 1e-3; lambda_min equal); two folds of
-    the parallel path on the first 25 lambdas (slice A's thresh) against
-    the plain step."""
+    the parallel path on the first 5 lambdas (slice A's thresh) against
+    the plain step.  The fold-parallel scores are returned for phase 17's
+    fold mesh."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.api import cv as cvmod
     from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
@@ -1273,7 +1308,7 @@ def phase_cv_abalone(dev, card, launches) -> dict:
     # thresh 1e-6: the CV curve's tail is flat (an OLS regime), and at the
     # default 1e-3 the solver's error there outweighs the curve's slope, so
     # which of its last lambdas is lambda_min would be a coin toss
-    kw = dict(family="gaussian", alpha=0.8, nfolds=10, thresh=1e-6, maxit=5000, device=dev)
+    kw = dict(family="gaussian", alpha=0.8, nfolds=CV_A_FOLDS, thresh=1e-6, maxit=5000, device=dev)
     fits, real_fit = [], cvmod.fit_fn
 
     def recorded(*a, **k):
@@ -1290,7 +1325,7 @@ def phase_cv_abalone(dev, card, launches) -> dict:
         launches["cv_serial"] = _launches()
     finally:
         cvmod.fit_fn = real_fit
-    check(len(fits) == 11 and all(s["epoch_kernel"] and s["epoch_chunks"] > 0 for s in fits),
+    check(len(fits) == CV_A_FOLDS + 1 and all(s["epoch_kernel"] and s["epoch_chunks"] > 0 for s in fits),
           f"serial CV: a fit did not run through K1: {[(s['epoch_kernel'], s['epoch_chunks']) for s in fits]}")
     check(launches["cv_serial"]["K1"] == sum(s["epoch_chunks"] for s in fits), "serial CV: K1 launches are not chunks")
     _reset_launches()
@@ -1300,23 +1335,23 @@ def phase_cv_abalone(dev, card, launches) -> dict:
         wall_p = time.perf_counter() - t0
     launches["cv_parallel"] = _launches()
     folds_k1 = [f["K1"] for f in clock.folds]
-    check(len(folds_k1) == 10 and min(folds_k1) > 0, f"fold-parallel CV: a fold did not launch K1: {folds_k1}")
+    check(len(folds_k1) == CV_A_FOLDS and min(folds_k1) > 0, f"fold-parallel CV: a fold did not launch K1: {folds_k1}")
     rel = float(np.max(np.abs(cv_p.cv_raw[0] - cv_s.cv_raw[0]) / (np.abs(cv_s.cv_raw[0]) * 0.05 + 1e-3)))
     same_min = abs(np.log(cv_p.lambda_min) - np.log(cv_s.lambda_min)) < 1e-9
-    print(f"  CV abalone (gaussian alpha 0.8, {len(cv_s.lambda_[0])} lambdas, thresh 1e-6, 10 folds) serial: "
-          f"{wall_s:.3f} s, {launches['cv_serial']['K1']} K1 launches over 11 fits; parallel: "
+    print(f"  CV abalone (gaussian alpha 0.8, {len(cv_s.lambda_[0])} lambdas, thresh 1e-6, {CV_A_FOLDS} folds) "
+          f"serial: {wall_s:.3f} s, {launches['cv_serial']['K1']} K1 launches over {len(fits)} fits; parallel: "
           f"{wall_p:.3f} s, K1 launches a fold {folds_k1}, fold walls "
           f"{[round(f['wall_s'], 3) for f in clock.folds]} s [{card}]")
     print(f"  CV abalone parallel vs serial: max |d cv_raw| / (0.05 |serial| + 1e-3) = {rel:.3f} (bound 1); "
           f"lambda_min {cv_p.lambda_min:.6g} / {cv_s.lambda_min:.6g}, lambda_1se {cv_p.lambda_1se:.6g} / "
           f"{cv_s.lambda_1se:.6g}")
     check(rel <= 1.0 and same_min, "CV abalone: fold-parallel CV disagrees with serial CV")
-    # two folds of the ten on the first 25 lambdas, K1 against the plain step
+    # two of the folds on the first 5 lambdas, K1 against the plain step
     foldid = np.zeros(len(y), dtype=int)
-    for j, chunk in enumerate(np.array_split(np.random.default_rng(0).permutation(len(y)), 10)):
+    for j, chunk in enumerate(np.array_split(np.random.default_rng(0).permutation(len(y)), CV_A_FOLDS)):
         foldid[chunk] = j
-    lam25 = cv_s.lambda_[0][:25]
-    two = dict(alpha=0.8, lambda_path=lam25, family="gaussian", device=dev, sampling="block")  # slice A's thresh
+    lam5 = cv_s.lambda_[0][:5]
+    two = dict(alpha=0.8, lambda_path=lam5, family="gaussian", device=dev, sampling="block")  # slice A's thresh
     t0 = time.perf_counter()
     k1 = parallel_fold_scores(x, y, foldid, 2, **two)
     wall_k1 = time.perf_counter() - t0
@@ -1324,13 +1359,15 @@ def phase_cv_abalone(dev, card, launches) -> dict:
     plain = parallel_fold_scores(x, y, foldid, 2, use_epoch_kernel=False, **two)
     wall_plain = time.perf_counter() - t0
     rel2 = float(np.max(np.abs(k1 - plain) / np.abs(plain)))
-    print(f"  CV abalone folds 0-1, first 25 lambdas: K1 {wall_k1:.3f} s, plain step {wall_plain:.3f} s; scores "
+    print(f"  CV abalone folds 0-1, first 5 lambdas: K1 {wall_k1:.3f} s, plain step {wall_plain:.3f} s; scores "
           f"max rel diff {rel2:.3e} (bound 1e-3) [{card}]")
     check(rel2 <= 1e-3, "CV abalone: K1 folds disagree with the plain step")
     return {"serial_wall_s": wall_s, "parallel_wall_s": wall_p, "fold_walls_s": [f["wall_s"] for f in clock.folds],
             "k1_launches_per_fold": folds_k1, "serial_k1_launches": launches["cv_serial"]["K1"],
             "parallel_vs_serial": rel, "lambda_min": cv_s.lambda_min, "lambda_1se": cv_s.lambda_1se,
-            "two_folds_k1_s": wall_k1, "two_folds_plain_s": wall_plain, "two_folds_rel_diff": rel2}
+            "two_folds_k1_s": wall_k1, "two_folds_plain_s": wall_plain, "two_folds_rel_diff": rel2,
+            "parallel_cv_raw": cv_p.cv_raw[0].tolist(), "parallel_lambda_min": cv_p.lambda_min,
+            "parallel_lambda_1se": cv_p.lambda_1se}
 
 
 def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
@@ -1348,19 +1385,21 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
     kw = {k: v for k, v in SLICE_C.items() if k not in ("alpha", "nlambda", "lambda_min_ratio")}
     foldid = np.arange(csr.shape[0]) % 3
     out = {}
-    for name, extra in (("kernels", dict(use_pallas=True)), ("plain", dict(use_pallas=False, use_tail_kernel=False))):
+    # the plain comparison on the first 3 lambdas of the path, for the run's time
+    for name, lam, extra in (("kernels", lam_c, dict(use_pallas=True)),
+                             ("plain", lam_c[:3], dict(use_pallas=False, use_tail_kernel=False))):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         with FoldClock() as clock:
             t0 = time.perf_counter()
-            scores = parallel_fold_scores(csr, y, foldid, 3, 1.0, lam_c, device=dev, seed=seed, **kw, **extra)
+            scores = parallel_fold_scores(csr, y, foldid, 3, 1.0, lam, device=dev, seed=seed, **kw, **extra)
             wall = time.perf_counter() - t0
         launches["cv_slice_c" if name == "kernels" else "cv_slice_c_plain"] = _launches()
         out[name] = {"scores": scores, "wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
                      "folds": clock.folds}
-        print(f"  CV slice C ({name}): {wall:.3f} s for 3 folds, fold walls "
+        print(f"  CV slice C ({name}, {len(lam)} lambdas): {wall:.3f} s for 3 folds, fold walls "
               f"{[round(f['wall_s'], 3) for f in clock.folds]} s (one unmasked slice C path {path_c:.3f} s), peak "
               f"device memory {out[name]['peak_bytes'] / 2**30:.2f} GiB; launches K2 / K3 / K4 a fold "
               f"{[(f['K2'], f['K3'], f['K4']) for f in clock.folds]} [{card}]")
@@ -1369,8 +1408,8 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
           "CV slice C: a fold did not run through K2, K3 and K4")
     check(sum(f["K2"] + f["K3"] + f["K4"] for f in p_["folds"]) == 0, "CV slice C: the plain call ran a kernel")
     check(np.isfinite(k["scores"]).all() and k["scores"].shape == (3, len(lam_c)), "CV slice C: bad scores")
-    rel = float(np.max(np.abs(k["scores"] - p_["scores"]) / np.abs(p_["scores"])))
-    print(f"  CV slice C kernels vs plain: scores max rel diff {rel:.3e} (bound 1e-3); mean deviance by lambda "
+    rel = float(np.max(np.abs(k["scores"][:, :3] - p_["scores"]) / np.abs(p_["scores"])))
+    print(f"  CV slice C kernels vs plain, the first 3 lambdas: scores max rel diff {rel:.3e} (bound 1e-3); mean deviance by lambda "
           f"{k['scores'].mean(axis=0).round(4)}")
     check(rel <= 1e-3, "CV slice C: the kernels' folds disagree with plain ops")
     walls, real_fit = [], cvmod.fit_fn
@@ -1579,6 +1618,253 @@ def phase_screening(csr, y, sd, lam_c, obj_c, path_c, dev, seed, card, launches)
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data-parallel fits on the card
+# ---------------------------------------------------------------------------
+
+
+def dp_kernel_check(rng, dev, csr, seed) -> dict:
+    """K2, K3 and K4 against their twins at the shapes of the 2-rank fit
+    (DP-C2: B 4096 a rank): K2 on a bf16 head of a rank's 53248 rows, K3
+    (k 1, f32, bare and with the intercept the step adds) and K4 (k 1) on
+    every block of slice C's tail packed at B 4096 (a rank's blocks are
+    these: the shards split the padded rows at a block boundary)."""
+    from sgdnet_tpu_torch.core.sparse import HybridCSR
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C
+
+    _, k2_err = _k2_bf16_case(rng, dev, seed, 53248, 4096)
+    th, _ = HybridCSR.split_columns(csr, coverage=SLICE_C["hybrid_coverage"], max_head=SLICE_C["hybrid_max_head"],
+                                    memory_budget=SLICE_C["hybrid_memory_budget"], head_dtype="bfloat16", device=dev)
+    bt = _packed_tail(th.tail, csr.shape[0], 4096, seed, dev)
+    th = None
+    worst = 0.0
+    for blk in range(bt.n_blocks):
+        w = torch.as_tensor(rng.standard_normal((1, bt.n_cols), dtype=np.float32), device=dev)
+        icpt = torch.as_tensor(rng.standard_normal(1, dtype=np.float32), device=dev)
+        gc = torch.as_tensor(rng.standard_normal((bt.batch, 1), dtype=np.float32), device=dev)
+        pairs = [(tk.coo_tail_forward(bt, blk, w), tk.coo_tail_forward_reference(bt, blk, w)),
+                 (tk.coo_tail_forward(bt, blk, w, intercept=icpt),
+                  tk.coo_tail_forward_reference(bt, blk, w, intercept=icpt)),
+                 (tk.coo_tail_outer(bt, blk, gc), tk.coo_tail_outer_reference(bt, blk, gc))]
+        for name, (out, ref) in zip(("K3", "K3 with the intercept", "K4"), pairs):
+            err = float((out - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            check(rel <= 1e-5, f"{name} disagrees with its plain version on slice C's block {blk} at B 4096: "
+                               f"rel {rel:.3e}")
+            worst = max(worst, err)
+    counts = bt.counts.cpu().numpy()
+    print(f"  K3 / K4 on slice C's {bt.n_blocks} blocks at B 4096 (E {bt.rows.shape[1]}, true entries "
+          f"{counts.min()}-{counts.max()}, K3 {bt.lanes} lanes a row): worst abs err {worst:.3e} (rel bound 1e-5)")
+    return {"k2_max_abs_err": k2_err, "tail_max_abs_err": worst}
+
+
+def phase_dp_c1(csr, y, sd, lam_c, obj_c, slice_c, dev, seed, card, launches) -> dict:
+    """Phase 17 (a) and (d), on a 1-rank NCCL mesh of this process: DP-C1,
+    slice C's fit (bf16 head D 16384, B 8192, use_pallas=True, phase 9's
+    lambdas) through K2 + K3 + K4, held to phase 9's per-lambda penalized
+    objective (1e-4 relative), its path wall beside phase 9's, its
+    all-reduces (one a step, one a refresh, one a loss pass), its step (ms
+    and kernel launches a step) beside phase 9's, and the all-reduce of the
+    step's buffer timed alone (a call, and the NCCL kernel's device time);
+    then measure_scaling at 1 rank (nnz/s on the card, efficiency 1 by
+    definition)."""
+    import torch.distributed as dist
+
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+    from sgdnet_tpu_torch.parallel.multihost import free_port, init_multihost
+    from sgdnet_tpu_torch.parallel.scaling import measure_scaling
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C, capture_steps, step_profile
+
+    init_multihost(f"localhost:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh()
+        check(mesh.backend == "nccl" and mesh.device == dev, f"the 1-rank mesh is not NCCL on {dev}: {mesh}")
+        kw = {k: v for k, v in SLICE_C.items() if k not in ("nlambda", "lambda_min_ratio")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with capture_steps() as made:
+            t0 = time.perf_counter()
+            f = st.fit(csr, y, device=dev, seed=seed, lambda_path=lam_c, mesh=mesh, use_pallas=True, **kw)
+            wall = time.perf_counter() - t0
+        launches["dp_c1"] = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        ln, ar = launches["dp_c1"], f.stats["allreduces"]
+        blocks, epochs = -(-csr.shape[0] // SLICE_C["batch_size"]), f.npasses
+        check(f.stats["mesh"] == {"axis": "data", "size": 1, "rank": 0, "backend": "nccl"}, f"DP-C1: {f.stats['mesh']}")
+        check(f.stats["head_kernel"] and f.stats["tail_kernel"] and min(ln["K2"], ln["K3"], ln["K4"]) > 0,
+              f"DP-C1 did not run through K2 + K3 + K4: {ln}")
+        check(ar["step"] == epochs * blocks == ln["K2"], f"DP-C1: not one all-reduce a step: {ar}, {ln}, "
+                                                         f"{epochs} epochs of {blocks} blocks")
+        obj = _objective(f, csr, y, sd)
+        rel = float(np.max(np.abs(obj - obj_c) / np.abs(obj_c)))
+        path = f.stats["wall_time_s"]
+        print(f"  DP-C1 (slice C on a 1-rank NCCL mesh, {len(lam_c)} lambdas): {wall:.3f} s fit wall, {path:.3f} s "
+              f"path (phase 9's unmeshed path {slice_c['path_s']:.3f} s: {path / slice_c['path_s']:.3f}x), "
+              f"{f.npasses} epochs (phase 9: {slice_c['epochs']}), peak {peak / 2**30:.2f} GiB; launches K2 "
+              f"{ln['K2']}, K3 {ln['K3']}, K4 {ln['K4']}; all-reduces {ar} [{card}]")
+        print(f"  DP-C1 penalized objective per lambda vs phase 9's fit: max rel diff {rel:.3e} (bound 1e-4)")
+        check(rel <= 1e-4, "DP-C1 disagrees with phase 9's fit")
+        sp_ = step_profile(*made[-1], dev)
+        made = None
+        c_step = slice_c["step"]
+        print(f"  DP-C1 step (one epoch of its {sp_['steps']} blocks): {sp_['ms_per_step']:.4f} ms a step, "
+              f"{sp_['kernels_per_step']:.2f} kernel launches a step ({sp_['device_events_per_step']:.2f} device "
+              f"events); phase 9's unmeshed step {c_step['ms_per_step']:.4f} ms, {c_step['kernels_per_step']:.2f} "
+              f"launches [{card}]")
+        buf = torch.zeros(2 + csr.shape[1], device=dev)  # the step's [sum wb, sum gc, corr] at k 1
+        red_ms = cuda_ms(lambda: mesh.all_reduce(buf, "timed"), 200)
+        red_dev = device_ms(lambda: mesh.all_reduce(buf, "timed"), 50, ("nccl",))
+        print(f"  the step's all-reduce alone ({buf.numel()} f32, one rank, NCCL): {red_ms:.4f} ms a call, "
+              f"{_fmt(red_dev)} of NCCL kernel on the device [{card}]")
+        f = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        scaling = measure_scaling(device_counts=[1])
+        wall_s = time.perf_counter() - t0
+        print(f"  measure_scaling at 1 rank (n 20000, p 512, density 0.1, B 256, 3 epochs, best of 3): "
+              f"{scaling[1]:.4g} nnz/s, efficiency {scaling['efficiency'][1]}, shared_device "
+              f"{scaling['shared_device']} ({wall_s:.1f} s) [{card}]")
+        check(scaling["efficiency"][1] == 1.0 and not scaling["shared_device"], f"measure_scaling: {scaling}")
+    finally:
+        dist.destroy_process_group()
+    return {"wall_s": wall, "path_s": path, "epochs": epochs, "peak_bytes": peak,
+            "launches": ln, "allreduces": ar, "objective_max_rel_diff": rel, "step": sp_,
+            "allreduce_ms": red_ms, "allreduce_device_ms": red_dev, "objective": obj.tolist(),
+            "scaling_nnz_per_s": scaling[1], "scaling_efficiency": scaling["efficiency"][1]}
+
+
+def _dp_rank(go, csr, y, lam3, seed) -> dict:
+    """One of phase 17's two ranks sharing the card (spawned; gloo through
+    the host).  It starts while the script's own phases run and waits for
+    `go` before it touches the card's time: (b) DP-C2, slice C's data on 3
+    lambdas at B 4096 a rank with K2 + K3 + K4, its launches, walls and
+    device memory; (c) CV-A over a fold mesh of the two ranks, K1 in every
+    fold."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C
+    from sgdnet_tpu_torch.utils import build
+
+    build.load_library()
+    mesh = make_mesh()
+    dev = mesh.device
+    if not go.wait(timeout=900.0):
+        raise SmokeFailure("phase 17's ranks were never told to start")
+    kw = {k: v for k, v in SLICE_C.items() if k not in ("nlambda", "lambda_min_ratio", "batch_size")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    f = st.fit(csr, y, device=dev, seed=seed, lambda_path=lam3, mesh=mesh, use_pallas=True, batch_size=4096, **kw)
+    wall = time.perf_counter() - t0
+    dp = {"launches": _launches(), "wall_s": wall, "path_s": f.stats["wall_time_s"], "epochs": f.npasses,
+          "beta": f.beta, "a0": f.a0, "lambda": f.lambda_, "w": f.final_state.w.cpu().numpy(),
+          "mesh": f.stats["mesh"], "allreduces": f.stats["allreduces"], "head_kernel": f.stats["head_kernel"],
+          "tail_kernel": f.stats["tail_kernel"], "peak_bytes": torch.cuda.max_memory_allocated(dev),
+          "resident_bytes": torch.cuda.memory_allocated(dev)}
+    f = None
+    torch.cuda.empty_cache()
+    x, yy = st.load_abalone()
+    folds = make_mesh(axis="folds")
+    _reset_launches()
+    with FoldClock() as clock:
+        t0 = time.perf_counter()
+        cv = st.cv_fit(x, yy, parallel=True, cv_mesh=folds, family="gaussian", alpha=0.8, nfolds=CV_A_FOLDS,
+                       thresh=1e-6, maxit=5000, device=dev)
+        wall_cv = time.perf_counter() - t0
+    cvm = {"cv_raw": cv.cv_raw[0], "lambda_min": cv.lambda_min, "lambda_1se": cv.lambda_1se, "folds": clock.folds,
+           "launches": _launches(), "wall_s": wall_cv, "mesh": (folds.axis, folds.size, folds.rank, folds.backend)}
+    return {"dp_c2": dp, "cv_mesh": cvm}
+
+
+def start_dp_ranks(csr, y, lam_c, seed):
+    """Start phase 17's two ranks (the kernels were built here first): they
+    import, join their gloo group and load the kernels while the script's
+    phases 16-17 (a) run, then wait for the event.  Returns (the event, a
+    box that gets run_ranks' result or exception, the daemon thread that
+    waits on it); the ranks are daemon processes, so a script that fails
+    first takes them down at its exit."""
+    import multiprocessing
+    import threading
+
+    from sgdnet_tpu_torch.parallel.multihost import run_ranks
+
+    go, box = multiprocessing.get_context("spawn").Event(), {}
+
+    def wait():
+        try:
+            box["ranks"] = run_ranks(_dp_rank, 2, args=(go, csr, y, lam_c[:3], seed), timeout=1200.0)
+        except Exception as e:  # handed to the main thread, which raises it
+            box["error"] = e
+
+    th = threading.Thread(target=wait, daemon=True)
+    th.start()
+    return go, box, th
+
+
+def phase_dp_shared(started, csr, y, sd, dp1, cv_a, slice_c, card, launches) -> dict:
+    """Phase 17 (b) and (c): two spawned ranks share the card (gloo, each
+    all-reduce through the host).  DP-C2 is held to DP-C1's first 3
+    lambdas by penalized objective (1e-4 relative) with w the same bits on
+    both ranks, each rank's peak device memory beside the unmeshed fit's;
+    the fold mesh's CV-A scores to phase 14's fold-parallel scores (1e-6
+    relative, lambda_min and lambda_1se the same), every fold through K1."""
+    from types import SimpleNamespace
+
+    go, box, th = started
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    go.set()
+    th.join()
+    wall = time.perf_counter() - t0
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    b = [r["dp_c2"] for r in ranks]
+    launches["dp_c2"] = {k: sum(r["launches"][k] for r in b) for k in b[0]["launches"]}
+    for r, rb in enumerate(b):
+        ln = rb["launches"]
+        check(rb["mesh"] == {"axis": "data", "size": 2, "rank": r, "backend": "gloo"}, f"DP-C2 rank {r}: {rb['mesh']}")
+        check(rb["head_kernel"] and rb["tail_kernel"] and min(ln["K2"], ln["K3"], ln["K4"]) > 0,
+              f"DP-C2 rank {r} did not run through K2 + K3 + K4: {ln}")
+    same = np.array_equal(b[0]["w"], b[1]["w"]) and np.array_equal(b[0]["beta"], b[1]["beta"])
+    obj = _objective(SimpleNamespace(beta=b[0]["beta"], a0=b[0]["a0"], lambda_=b[0]["lambda"]), csr, y, sd)
+    ref = np.asarray(dp1["objective"][:3])
+    rel = float(np.max(np.abs(obj - ref) / np.abs(ref)))
+    for r, rb in enumerate(b):
+        print(f"  DP-C2 rank {r} (2 ranks sharing the card through gloo, every all-reduce through the host: not a "
+              f"scaling number; B 4096 a rank, 3 lambdas): {rb['wall_s']:.3f} s fit wall, {rb['path_s']:.3f} s path, "
+              f"{rb['epochs']} epochs; launches K2 {rb['launches']['K2']}, K3 {rb['launches']['K3']}, K4 "
+              f"{rb['launches']['K4']}; all-reduces {rb['allreduces']}; peak device memory "
+              f"{rb['peak_bytes'] / 2**30:.2f} GiB, {rb['resident_bytes'] / 2**30:.2f} GiB held after the fit "
+              f"(the unmeshed slice C fit of phase 9: peak {slice_c['peak_bytes'] / 2**30:.2f} GiB) [{card}]")
+    print(f"  DP-C2 penalized objective per lambda vs DP-C1's first 3: max rel diff {rel:.3e} (bound 1e-4); w the same "
+          f"bits on both ranks: {same}")
+    check(same, "DP-C2: the ranks' coefficients differ")
+    check(rel <= 1e-4, "DP-C2 disagrees with DP-C1")
+    c = [r["cv_mesh"] for r in ranks]
+    launches["cv_mesh"] = {k: sum(r["launches"][k] for r in c) for k in c[0]["launches"]}
+    folds = [f for r in c for f in r["folds"]]
+    check(len(folds) == CV_A_FOLDS and min(f["K1"] for f in folds) > 0,
+          f"CV-A mesh: a fold did not run through K1: {[f['K1'] for f in folds]}")
+    ref_raw = np.asarray(cv_a["parallel_cv_raw"])
+    rel_c = max(float(np.max(np.abs(r["cv_raw"] - ref_raw) / np.abs(ref_raw))) for r in c)
+    same_opt = all(r["lambda_min"] == cv_a["parallel_lambda_min"] and r["lambda_1se"] == cv_a["parallel_lambda_1se"]
+                   for r in c)
+    print(f"  CV-A over a fold mesh of 2 ranks sharing the card ({CV_A_FOLDS} folds, thresh 1e-6): "
+          f"{[round(r['wall_s'], 3) for r in c]} s a rank, fold walls {[round(f['wall_s'], 3) for f in folds]} s, "
+          f"K1 launches a fold {[f['K1'] for f in folds]}; scores vs phase 14's fold-parallel ones: max rel diff "
+          f"{rel_c:.3e} (bound 1e-6), lambda_min / lambda_1se the same: {same_opt} [{card}]")
+    check(rel_c <= 1e-6 and same_opt, "CV-A over the fold mesh disagrees with phase 14's fold-parallel CV")
+    print(f"  phase 17 (b), (c): {wall:.1f} s from the ranks' start signal to their results")
+    return {"dp_c2": [{k: v for k, v in rb.items() if k not in ("beta", "a0", "lambda", "w")} for rb in b],
+            "dp_c2_objective_max_rel_diff": rel, "dp_c2_same_bits": same, "cv_mesh_rel_diff": rel_c,
+            "cv_mesh_walls_s": [r["wall_s"] for r in c], "cv_mesh_fold_walls_s": [f["wall_s"] for f in folds],
+            "cv_mesh_k1_launches_per_fold": [f["K1"] for f in folds], "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
@@ -1657,7 +1943,7 @@ def main(argv=None) -> int:
     fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
     launches["D"] = _launches()
     slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], step_d, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_D, card, plain_lambdas=5)
+                                 SLICE_D, card, plain_lambdas=2)
     fit_d = step_d = None
     torch.cuda.empty_cache()
 
@@ -1673,11 +1959,11 @@ def main(argv=None) -> int:
     fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
     launches["E"] = _launches()
     slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_E, card, plain_lambdas=5)
+                                 SLICE_E, card, plain_lambdas=3)
     step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
-    # the widths on the first 4 lambdas of the path: ms an epoch is what they compare
-    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], fit_e.lambda_[:4], card)
+    # the widths on the first 2 lambdas of the path: ms an epoch is what they compare
+    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], fit_e.lambda_[:2], card)
     fit_e = None
     torch.cuda.empty_cache()
 
@@ -1687,39 +1973,54 @@ def main(argv=None) -> int:
     phase("phase 15: fold-parallel CV at slice C's width (K2 + K3 + K4)")
     cv_c = phase_cv_slice_c(csr, y_sp, lam_c, slice_c["path_s"], dev, args.seed, card, launches)
     torch.cuda.empty_cache()
-    phase("phase 16: screening (slice C, and a wide dense gaussian through K2 on subsets)")
+    phase("phase 16: screening (slice C, and a wide dense gaussian through K2 on subsets); phase 17's two ranks "
+          "start meanwhile and wait")
+    dp_ranks = start_dp_ranks(csr, y_sp, lam_c, args.seed)
     screening = phase_screening(csr, y_sp, sd, lam_c, obj_c, slice_c["path_s"], dev, args.seed, card, launches)
     phase("phase 16: K2 against its twin at the shapes of the screened problems' fits")
     k2s = k2_subset_check(rng, dev, card)
+    torch.cuda.empty_cache()
+    phase("phase 17: K2 / K3 / K4 against their twins at the 2-rank fit's shapes (B 4096 a rank)")
+    dpk = dp_kernel_check(rng, dev, csr, args.seed)
+    k2w["max_abs_err"] = max(k2w["max_abs_err"], dpk["k2_max_abs_err"])
+    for k in (k3, k4):
+        k["max_abs_err"] = max(k["max_abs_err"], dpk["tail_max_abs_err"])
+    torch.cuda.empty_cache()
+    phase("phase 17 (a), (d): DP-C1, slice C on a 1-rank NCCL mesh; measure_scaling at 1 rank")
+    dp1 = phase_dp_c1(csr, y_sp, sd, lam_c, obj_c, slice_c, dev, args.seed, card, launches)
+    phase("phase 17 (b), (c): DP-C2 and CV-A over a fold mesh, 2 spawned ranks sharing the card (gloo)")
+    dp2 = phase_dp_shared(dp_ranks, csr, y_sp, sd, dp1, cv_a, slice_c, card, launches)
     phase("every phase passed")
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
                       "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
-                      "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening}))
+                      "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening,
+                      "data_parallel": {"dp_c1": dp1, **dp2}}))
 
     def by_path(key, paths):
         return {"launches": sum(launches[p][key] for p in paths),
                 "launches_by_path": {p: launches[p][key] for p in paths}}
 
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
+    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2"]
     probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
         {"name": "saga_epochs (K1), one abalone epoch", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
-         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290", **by_path("K1", ["A", "cv_serial", "cv_parallel"]),
-         **k1},
+         "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290",
+         **by_path("K1", ["A", "cv_serial", "cv_parallel", "cv_mesh"]), **k1},
         {"name": "fused_head_step_at (K2), f32 D=784 k=10 B=4096", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", "B"), **k2},
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
-         **by_path("K2", ["C", "H", "cv_slice_c"]), **k2w},
+         **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2"]), **k2w},
         {"name": "fused_head_step_at (K2), f32 screened subsets, D=512 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", ["screen_true_c", "screen_auto_c", "screen_true_wide", "screen_auto_wide"]), **k2s},
         {"name": "coo_tail_forward (K3)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K3", ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c"]), **k3},
+         **by_path("K3", tail_paths), **k3},
         {"name": "coo_tail_outer (K4)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
-         **by_path("K4", ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c"]), **k4},
+         **by_path("K4", tail_paths), **k4},
         {"name": "epoch_probe (P1)", "route": "cuda", "source": probe_src,
          "replaces": "tools/bench_epoch_kernel.py:65", **by_path("P1", ["P1"]), **p1},
         {"name": "block_colsum (P2), bf16 106496 x 16384, B 8192", "route": "cuda", "source": probe_src,

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sgdnet_tpu_torch.api.fit import SgdnetFit, fit as fit_fn
+from sgdnet_tpu_torch.api.fit import SgdnetFit, fit as fit_fn, mesh_device
 from sgdnet_tpu_torch.api.score import score as score_fn
 
 
@@ -140,12 +140,14 @@ def cv_fit(
     the full-data fit), one array (one alpha), or a list of arrays matching
     `alpha`.  `fit_kwargs` reach every fit (`device` among them: None is
     the card).  `parallel=True` fits each alpha's folds as weight masks
-    over one design on the device (parallel/cv.py), one after another;
-    `cv_mesh` (folds over several devices) is not ported yet and raises.
+    over one design on the device (parallel/cv.py), one after another, or
+    over a fold mesh `cv_mesh` (parallel/dist.py `make_mesh(axis="folds")`,
+    every rank calling cv_fit with the same arguments), each rank its share
+    of the folds; a `mesh` among `fit_kwargs` makes every fit data-parallel
+    instead (serial CV).
     """
     if parallel and cv_mesh is not None:
-        raise NotImplementedError("cv_mesh (folds over several devices) is not ported to sgdnet_tpu_torch yet "
-                                  "(ROADMAP Queue 1 item 4)")
+        mesh_device(cv_mesh, fit_kwargs.get("device"))  # a device beside the mesh must be its own
     alphas = np.atleast_1d(np.asarray(alpha, dtype=np.float64))
     n_alpha = len(alphas)
     if nfolds <= 2:
@@ -209,7 +211,8 @@ def cv_fit(
 
             scores = parallel_fold_scores(
                 x, y, foldid, nfolds, alpha=float(alphas[i]), lambda_path=lambda_list[i],
-                type_measure=type_measure, seed=seed, sample_weight=sw_arr, offset=offset_arr, **fit_kwargs,
+                type_measure=type_measure, mesh=cv_mesh, seed=seed, sample_weight=sw_arr, offset=offset_arr,
+                **fit_kwargs,
             )
         else:
             for j in range(nfolds):

@@ -23,6 +23,7 @@ from sgdnet_tpu_torch.core.sparse import (
     scipy_row_sq_norms,
 )
 from sgdnet_tpu_torch.families import get_family, lambda_max_offset
+from sgdnet_tpu_torch.parallel.dist import pad_to_shards, shard_path_inputs
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel
 from sgdnet_tpu_torch.solver.saga import SagaState, SolverConfig, fit_path, init_state, uses_head_kernel
@@ -63,8 +64,11 @@ class SgdnetFit:
     #: wall_time_s, epochs, nnz, nnz_per_s, layout, device, which kernels
     #: ran (epoch_kernel = K1, head_kernel = K2, tail_kernel = the BlockCOO
     #: tail ops K3 / K4), epoch_chunks (K1's launches, a chunk of epochs and
-    #: one host sync each; 0 off K1), and layout_plan (the planner's LayoutPlan as a
-    #: dict under hybrid_max_head="auto" on scipy input, else None)
+    #: one host sync each; 0 off K1), layout_plan (the planner's LayoutPlan as a
+    #: dict under hybrid_max_head="auto" on scipy input, else None), and
+    #: under a mesh `mesh` (axis, size, rank, backend) and `allreduces` (the
+    #: fit's all-reduces by what they reduce: step, refresh, loss, setup,
+    #: and their total)
     stats: dict | None = field(default=None, repr=False)
 
     @property
@@ -129,6 +133,18 @@ def _issparse(x) -> bool:
     except ImportError:
         return False
     return sp.issparse(x)
+
+
+def mesh_device(mesh, device) -> torch.device:
+    """The device of a fit: the mesh's where there is one (a `device` given
+    beside it must name the same), else `device` (None: the card)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != mesh.device.type or asked.index not in (None, mesh.device.index):
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    return mesh.device
 
 
 def _not_in_slice(name: str, item: str):
@@ -284,8 +300,8 @@ def _epoch_kernel_gate(use_epoch_kernel, sampling, dev, dtype, n_samples: int, n
     """(K1 runs, the sampling): dense f32 problems within the Hopper gate
     run each λ attempt's epochs in launches of K1, by default on CUDA only
     (on the CPU its twin runs on explicit opt-in, as interpret mode does in
-    the JAX package); debug and box limits (`plain_only`) and a warm state
-    stay on the step path.  Unset sampling is block under K1, else block
+    the JAX package); debug, box limits and a mesh (`plain_only`) and a
+    warm state stay on the step path.  Unset sampling is block under K1, else block
     from 32768 rows on; a warm state keeps permutation, as block mode
     pre-shuffles rows and would misalign a g_mem saved under another
     order."""
@@ -485,12 +501,18 @@ def fit(
     and `nnz` / `nnz_per_s` then count the elements the solver streamed
     (`coverage_nnz`: the full design's).
 
-    Not ported yet, and raising NotImplementedError: `mesh` and
-    `lambda_chunk`.
+    With `mesh` (a parallel.dist.Mesh; every rank of its group calls fit
+    with the same arguments) the fit runs data-parallel: each rank keeps
+    its contiguous share of the shuffled, padded rows (and of g_mem) on the
+    mesh's device, w and g_sum are replicated, and a step makes one
+    all-reduce (parallel/dist.py).  `batch_size` is then the per-rank
+    batch; the global batch is batch_size * mesh.size.  K1 does not run
+    under a mesh, K2 only with `use_pallas=True`; `screen="auto"` runs
+    unscreened and `screen=True` raises.  Every rank returns the same path.
+
+    Not ported yet, and raising NotImplementedError: `lambda_chunk`.
     """
     # ---- keywords outside the slice ----
-    if mesh is not None:
-        _not_in_slice("mesh (data-parallel fits)", "4")
     if screen not in (False, True, "auto"):
         raise ValueError(f"screen must be False, True, or 'auto'; got {screen!r}")
     if isinstance(hybrid_max_head, str) and hybrid_max_head != "auto":
@@ -511,7 +533,7 @@ def fit(
         raise ValueError("maximum number of iterations cannot be negative or zero.")
 
     dtype = as_torch_dtype(dtype)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     tens = dict(dtype=dtype, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
     head_dtype = as_head_dtype(hybrid_head_dtype)
@@ -523,6 +545,7 @@ def fit(
     x, is_sparse, prebuilt, col_perm, layout_plan = d.x, d.is_sparse, d.prebuilt, d.col_perm, d.layout_plan
     head_nnz, pre_std, pre_row_sq = d.head_nnz, d.pre_std, d.pre_row_sq
     hybrid_max_head, hybrid_coverage = d.max_head, d.coverage
+    d = None  # the design as ingested is not kept beside its standardized form
     n_samples, n_features = x.shape
     if n_samples == 0:
         raise ValueError("the predictor matrix (x) is empty.")
@@ -666,12 +689,16 @@ def fit(
         # scipy input is int8 already)
         x = x.quantize_head()
 
-    # ---- pad rows to a multiple of batch_size ----
-    n_pad = ((n_samples + batch_size - 1) // batch_size) * batch_size
+    # ---- pad rows to a multiple of batch_size (of shards * batch_size under
+    # a mesh: each rank's rows are a whole number of batches) ----
+    if mesh is None:
+        n_pad = ((n_samples + batch_size - 1) // batch_size) * batch_size
+    else:
+        n_pad = pad_to_shards(n_samples, mesh.size, batch_size)
     ek_ok, sampling = _epoch_kernel_gate(
         use_epoch_kernel, sampling, dev, dtype, n_samples, n_pad, n_features, n_classes, batch_size,
-        dense=not is_sparse, plain_only=debug or box is not None, with_offs=offs64 is not None,
-        warm=warm_state is not None)
+        dense=not is_sparse, plain_only=debug or box is not None or mesh is not None,
+        with_offs=offs64 is not None, warm=warm_state is not None)
     if sampling == "block":
         # shuffle rows once (seed-deterministic, as in the JAX package) so
         # contiguous blocks are random samples even for ordered input
@@ -738,9 +765,9 @@ def fit(
         sparse_mode = "densify" if n_features <= 8192 else "gather"
     if use_pallas is None:
         # K2 by default where the JAX package runs its Pallas kernel: a bf16
-        # hybrid head under block sampling, on the card
+        # hybrid head under block sampling, on the card, unmeshed
         use_pallas = (sampling == "block" and isinstance(x, HybridCSR) and x.head.dtype == torch.bfloat16
-                      and dev.type == "cuda")
+                      and dev.type == "cuda" and mesh is None)
 
     config = SolverConfig(
         batch_size=batch_size,
@@ -759,11 +786,28 @@ def fit(
     )
 
     if screen == "auto":
-        # regime-aware screening; ineligible fits (ridge, debug) run the
-        # unscreened schedule: "auto" chooses, it never errors
-        screen = "auto" if (alpha > 0.0 and not debug) else False
-    if screen and (alpha == 0.0 or debug):
+        # regime-aware screening; ineligible fits (mesh, ridge, debug) run
+        # the unscreened schedule: "auto" chooses, it never errors
+        screen = "auto" if (mesh is None and alpha > 0.0 and not debug) else False
+    if screen and (mesh is not None or alpha == 0.0 or debug):
         raise ValueError("screen=True requires a single device, alpha > 0, and debug=False")
+
+    nnz_per_epoch = x.total_nnz() if is_sparse else n_pad * n_features
+    if mesh is not None:
+        # every rank computed the path from the whole data; rank 0's values
+        # are taken, so no rank can branch on a difference in the last bits
+        # (a scatter on the card sums in no fixed order)
+        nl = len(l1s)
+        path = mesh.broadcast(torch.as_tensor(np.concatenate([gammas, l1s, l2s, lambdas]), **f64))
+        gammas, l1s, l2s, lambdas = (a.numpy() for a in path.cpu().split(nl))
+        mesh.broadcast(state0.intercept)
+        if box is not None:
+            box = tuple(mesh.broadcast(b.contiguous()) for b in box)
+        # the rank's rows (as fit_path_sharded takes them); the full design
+        # is dropped here
+        x, y_proc, weights, offs_dev, state0 = shard_path_inputs(mesh, x, y_proc, weights, offs_dev, state0)
+        config = replace(config, mesh=mesh)
+        counts0 = dict(mesh.counts)
 
     t0 = time.perf_counter()
     scr_stats = None
@@ -786,7 +830,6 @@ def fit(
 
     # ---- rescale to original units ----
     w_path = np.asarray(results.w, dtype=np.float64)  # (nl, k, p)
-    nnz_per_epoch = x.total_nnz() if is_sparse else n_pad * n_features
     epochs = int(n_iter)
     stats = {
         "wall_time_s": wall,
@@ -805,6 +848,10 @@ def fit(
                                                                 and use_tail_kernel),
         "layout_plan": None if layout_plan is None else asdict(layout_plan),
     }
+    if mesh is not None:
+        stats["mesh"] = {"axis": mesh.axis, "size": mesh.size, "rank": mesh.rank, "backend": mesh.backend}
+        stats["allreduces"] = {k: v - counts0.get(k, 0) for k, v in mesh.counts.items()}
+        stats["allreduces"]["total"] = sum(stats["allreduces"].values())
     if screen:
         # the work basis: the elements the solver streamed on its active-set
         # subsets; the full design's figure stays as coverage

@@ -6,7 +6,12 @@ fold standardizes with its training weights (dense layouts centred and
 scaled; PaddedCSR / HybridCSR scale-only with the rank-1 centering term
 xc), fits the lambda path with the port's `fit_path` and scores its held-
 out rows on the device.  The JAX package maps a device's folds one after
-another with `lax.map`; here that is a loop over folds.
+another with `lax.map`; here that is a loop over folds.  Over a fold mesh
+(parallel/dist.py `make_mesh(axis="folds")`) the folds are padded to a
+multiple of the ranks and rank r runs its contiguous share of them with
+that loop; one all-gather collects the scores.  Fold fits take no rank in
+their orders (the JAX package's fold shard_map folds none in), so a fold
+scores the same on whichever rank runs it.
 
 Every option of the JAX code is carried: all layouts, sample weights,
 penalty factors (mean-normalised), exclusions and box limits (on each
@@ -33,7 +38,7 @@ import torch
 
 from sgdnet_tpu_torch.api.fit import (
     _as_design_matrix, _box_limits, _epoch_kernel_gate, _feature_constraints, _link_offset, _max_sq_row_norm,
-    _poisson_family, _standardize_design, as_torch_dtype,
+    _poisson_family, _standardize_design, as_torch_dtype, mesh_device,
 )
 from sgdnet_tpu_torch.core.sparse import BlockCOO, HybridCSR, as_head_dtype
 from sgdnet_tpu_torch.families import get_family
@@ -41,7 +46,6 @@ from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver.saga import SolverConfig, fit_path, init_state
 from sgdnet_tpu_torch.solver.screening import _full_lp
 from sgdnet_tpu_torch.solver.stepsize import power_iteration_sq_norm, saga_step_sizes
-from sgdnet_tpu_torch.utils.device import resolve_device
 
 
 def fold_score(family_name: str, type_measure: str, lp: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
@@ -208,11 +212,10 @@ def parallel_fold_scores(
     PaddedCSR or HybridCSR designs, sample weights, penalty factors, box
     limits, exclusions, offsets, every score (AUC as a masked rank sum) and
     the layout and kernel options of `fit`; unknown keywords raise
-    TypeError.  `screen`, `debug` and `warm_state` raise, and so does a
-    `mesh` (folds over several devices: not ported yet)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (folds over several devices) is not ported to sgdnet_tpu_torch yet "
-                                  "(ROADMAP Queue 1 item 4)")
+    TypeError.  `screen`, `debug` and `warm_state` raise.  With a `mesh`
+    (every rank calls with the same arguments; the device is the mesh's)
+    each rank fits its share of the folds and every rank returns all the
+    scores; a padded fold (past `nfolds`) is not fitted."""
     if screen:
         raise NotImplementedError(
             "screen=True is not supported inside the parallel CV fold program "
@@ -222,7 +225,7 @@ def parallel_fold_scores(
         raise NotImplementedError("debug/warm_state are not supported with parallel CV")
 
     dtype = as_torch_dtype(dtype)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     head_dtype = as_head_dtype(hybrid_head_dtype)
     quantize_int8 = head_dtype == torch.int8
 
@@ -311,16 +314,23 @@ def parallel_fold_scores(
     blk_tail = BlockCOO.from_padded(x.tail, batch_size) if sampling == "block" and isinstance(x, HybridCSR) else None
 
     lambdas = np.asarray(lambda_path, dtype=np.float64)
-    scores = np.zeros((nfolds, len(lambdas)))
-    for j in range(nfolds):
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if mesh is not None:
+        # every rank fits on rank 0's path (the paths were computed apart)
+        lambdas = mesh.broadcast(torch.as_tensor(lambdas, dtype=torch.float64, device=dev)).cpu().numpy()
+    per = -(-nfolds // n_ranks)  # folds a rank, the last ranks' padded
+    scores = np.zeros((per, len(lambdas)))
+    for i, j in enumerate(range(rank * per, min((rank + 1) * per, nfolds))):
         train = (foldid != j).astype(np.float64)  # train on k-1 folds
         # the test mask is the held-out fold itself, so zero-weight
         # training rows never leak into it
         train_w = padded(train if sw is None else train * sw)
         test_mask = padded(1.0 - train)
-        scores[j] = _fold_fit_and_score(
+        scores[i] = _fold_fit_and_score(
             x, blk_tail, y_dev, train_w, test_mask, lambdas, float(alpha), top_sq, fam, penalty, config,
             type_measure, thresh, seed, standardize=standardize, pf=pf_dev, box_lo=box_lo, box_hi=box_hi,
             offs=offs_dev, quantize_int8=quantize_int8,
         )
-    return scores
+    if mesh is not None:
+        scores = mesh.all_gather(torch.as_tensor(scores, dtype=torch.float64, device=dev)).cpu().numpy()
+    return scores.reshape(-1, len(lambdas))[:nfolds]

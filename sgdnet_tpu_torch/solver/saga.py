@@ -28,6 +28,16 @@ sampling) or of the n_pad rows (permutation sampling).  The default draws
 `torch.randperm` from a `torch.Generator` seeded from (seed, lam_idx,
 attempt, epoch), so like the JAX package's folded keys an epoch's order
 does not depend on how many epochs came before it.
+
+Data-parallel fits (`SolverConfig.mesh`, parallel/dist.py): x, y, the
+weights and g_mem hold the rank's rows, w, the intercept and g_sum are
+replicated.  A step reduces one packed buffer [sum wb, sum gc, corr] with
+one all-reduce (the JAX package's three psums), the g_sum refresh one
+[g_sum, col_sum], the dataset loss one scalar; everything else (the prox,
+the box, the stop test, the backoff, the divergence guard) is computed
+from reduced or replicated values, so every rank takes the same branches.
+Each rank draws its own orders (its rank in the seed, as the JAX package
+folds the axis index into the epoch key).
 """
 
 from __future__ import annotations
@@ -88,6 +98,10 @@ class SolverConfig:
     #: BlockCOO tail ops through K3 / K4 (solver/tail_kernel.py); False runs
     #: their plain torch versions on any device (the comparison path)
     use_tail_kernel: bool = True
+    #: data-parallel execution (the JAX package's `axis_name`): a
+    #: parallel.dist.Mesh whose ranks each hold a shard of the rows; its
+    #: `all_reduce(tensor, what)` sums in place over the ranks
+    mesh: object = None
 
 
 def np_dtype(dtype: torch.dtype):
@@ -222,26 +236,30 @@ def _linear_predictor(x, xc, w, intercept, offs_b, sel, B: int, kernels: bool = 
 
 
 def _dataset_loss(x, y, weights, w, intercept, family: Family, offs=None, report: bool = True, xc=None,
-                  block: int = 1024, kernels: bool = True):
+                  block: int = 1024, kernels: bool = True, mesh=None):
     """Weighted total loss over the dataset (0-d tensor).  `report=True`
     uses the family's exact reporting loss, `report=False` the solver loss.
     A sparse layout is read in row blocks of `block` (halved until it
-    divides n_pad), so no head-wide temporary is made."""
+    divides n_pad), so no head-wide temporary is made.  Under a mesh the
+    ranks' totals are summed by one all-reduce."""
     loss_fn = family.loss_report if report else family.loss
     if not isinstance(x, (PaddedCSR, HybridCSR)):
         lp = x @ w.T + intercept
         if offs is not None:
             lp = lp + offs
-        return torch.sum(loss_fn(lp, y) * weights)
-    n_pad = y.shape[0]
-    block = min(block, n_pad)
-    while n_pad % block != 0:
-        block = max(block // 2, 1)
-    total = torch.zeros((), dtype=w.dtype, device=w.device)
-    for start in range(0, n_pad, block):
-        lp = _linear_predictor(x, xc, w, intercept, None if offs is None else offs[start : start + block], start,
-                               block, kernels)
-        total = total + torch.sum(loss_fn(lp, y[start : start + block]) * weights[start : start + block])
+        total = torch.sum(loss_fn(lp, y) * weights)
+    else:
+        n_pad = y.shape[0]
+        block = min(block, n_pad)
+        while n_pad % block != 0:
+            block = max(block // 2, 1)
+        total = torch.zeros((), dtype=w.dtype, device=w.device)
+        for start in range(0, n_pad, block):
+            lp = _linear_predictor(x, xc, w, intercept, None if offs is None else offs[start : start + block],
+                                   start, block, kernels)
+            total = total + torch.sum(loss_fn(lp, y[start : start + block]) * weights[start : start + block])
+    if mesh is not None:
+        mesh.all_reduce(total.reshape(1), "loss")
     return total
 
 
@@ -290,6 +308,14 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     B = config.batch_size
     hybrid = isinstance(x, HybridCSR)
     kernels = config.use_tail_kernel
+    mesh = config.mesh
+    if mesh is not None:
+        # the step's one collective: [sum wb, sum gc (k), corr (k, p)] in one
+        # buffer, written through its views, reduced in place and read
+        # before the next step writes it again
+        k, p = family.n_classes, x.shape[1]
+        red = torch.empty((1 + k + k * p,), dtype=y.dtype, device=y.device)
+        red_bw, red_gc, red_corr = red[0], red[1 : 1 + k], red[1 + k :].view(k, p)
     # K3 bound once for the step's blocks (its checks run here, not a call)
     fwd = None
     if kernels and hybrid and x.blk_tail is not None and x.blk_tail.batch == B and x.blk_tail.device.type == "cuda":
@@ -341,8 +367,15 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         return _finish_step(state, scal, wb, g_change, corr)
 
     def _finish_step(state: SagaState, scal: _Scalars, wb, g_change, corr):
-        bw = torch.clamp(torch.sum(wb), min=1e-12)
-        sum_gc = torch.sum(g_change, dim=0)  # (k,)
+        if mesh is None:
+            bw = torch.clamp(torch.sum(wb), min=1e-12)
+            sum_gc = torch.sum(g_change, dim=0)  # (k,)
+        else:
+            torch.sum(wb, dim=0, out=red_bw)
+            torch.sum(g_change, dim=0, out=red_gc)
+            red_corr.copy_(corr)
+            mesh.all_reduce(red, "step")
+            bw, sum_gc, corr = torch.clamp(red_bw, min=1e-12), red_gc, red_corr
         grad_est = corr / bw + state.g_sum
         # per-feature penalty factors scale both the L2 decay and the prox
         # threshold (glmnet `penalty.factor`); pf is (p,), broadcast over k
@@ -374,8 +407,9 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     return step
 
 
-def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None) -> SagaState:
-    """Exact recompute g_sum = (1/W) X_eff^T g_mem (one pass over x)."""
+def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None, mesh=None) -> SagaState:
+    """Exact recompute g_sum = (1/W) X_eff^T g_mem (one pass over x); under
+    a mesh the ranks' [g_sum, col_sum] are summed by one all-reduce."""
     if isinstance(x, (PaddedCSR, HybridCSR)):
         g_sum = x.matvec_T(state.g_mem).T.contiguous() / w_total
     else:
@@ -383,6 +417,11 @@ def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None) -> SagaState:
     col_sum = torch.sum(state.g_mem, dim=0)
     if xc is not None:
         g_sum = g_sum - torch.outer(col_sum, xc.to(g_sum.dtype)) / w_total
+    if mesh is not None:
+        k, p = g_sum.shape
+        buf = torch.cat([g_sum.reshape(-1), col_sum])
+        mesh.all_reduce(buf, "refresh")
+        g_sum, col_sum = buf[: k * p].view(k, p), buf[k * p :]
     return state._replace(g_sum=g_sum, g_sum_intercept=col_sum / w_total)
 
 
@@ -411,7 +450,7 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
         for sel in sels:
             state = step(state, scal, sel)
         if config.g_sum_refresh and (every <= 1 or it is None or (it + 1) % every == 0):
-            state = _refresh_g_sum(x, w_total, state, xc)
+            state = _refresh_g_sum(x, w_total, state, xc, config.mesh)
         return state
 
     return epoch
@@ -442,16 +481,18 @@ def order_count(config: SolverConfig, n_pad: int) -> int:
     return n_pad // config.batch_size if config.sampling == "block" or config.use_epoch_kernel else n_pad
 
 
-def default_order_fn(seed: int, n: int, salt: int | None = None):
+def default_order_fn(seed: int, n: int, salt: int | None = None, rank: int | None = None):
     """Permutations of range(n), one per (lam_idx, attempt, epoch), each
     from its own `torch.Generator` seeded from those indices and `seed`;
     a caller that tells its fit_path calls apart by a `salt` (screening's
     λ groups, KKT rounds and retries) gets orders seeded from it too, as
-    the JAX package folds it into its key."""
+    the JAX package folds it into its key.  A mesh's rank draws orders
+    seeded from its `rank` as well, so each shard has its own."""
     head = [seed] if salt is None else [seed, salt]
+    tail = [] if rank is None else [rank]
 
     def order_fn(lam_idx: int, attempt: int, epoch: int) -> torch.Tensor:
-        s = np.random.SeedSequence(head + [lam_idx, attempt, epoch]).generate_state(1, np.uint64)[0]
+        s = np.random.SeedSequence(head + [lam_idx, attempt, epoch] + tail).generate_state(1, np.uint64)[0]
         return torch.randperm(n, generator=torch.Generator().manual_seed(int(s)))
 
     return order_fn
@@ -512,10 +553,18 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     l2s = np.asarray(l2s, dt).reshape(-1)
     tol = dt(tol)
     n_pad = y.shape[0]
-    w_total = float(torch.clamp(torch.sum(weights), min=1e-12))
+    mesh = config.mesh
+    if mesh is not None and config.use_epoch_kernel:
+        raise ValueError("the epoch kernel runs a whole epoch on one device: a meshed fit takes the step path")
+    w_sum = torch.sum(weights).reshape(1)
+    if mesh is not None:
+        mesh.all_reduce(w_sum, "setup")
+    w_total = float(torch.clamp(w_sum, min=1e-12))
     k, p = state0.w.shape
     if order_fn is None:
-        order_fn = default_order_fn(seed, order_count(config, n_pad))
+        n_orders = order_count(config, n_pad)
+        order_fn = default_order_fn(seed, n_orders) if mesh is None else default_order_fn(seed, n_orders,
+                                                                                             rank=mesh.rank)
 
     if config.use_epoch_kernel:
         # small-problem path: state rides in the kernel's padded layout
@@ -537,7 +586,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     def _loss(st):
         s = unpad(st)
         return float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, xc=xc,
-                                   kernels=config.use_tail_kernel)) / w_total
+                                   kernels=config.use_tail_kernel, mesh=mesh)) / w_total
 
     n_chunks = [0]
 
@@ -607,12 +656,12 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     def _dev(st, report=True):
         s = unpad(st)
         return 2.0 * _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=report, xc=xc,
-                                   kernels=config.use_tail_kernel)
+                                   kernels=config.use_tail_kernel, mesh=mesh)
 
     def _lmean(st):
         s = unpad(st)
         return _dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, report=False, xc=xc,
-                             kernels=config.use_tail_kernel) / w_total
+                             kernels=config.use_tail_kernel, mesh=mesh) / w_total
 
     def _objective(st, lmean, l1, l2):
         """Penalized objective: mean loss + l1*P1(w) + l2/2*||w||_pf^2 —

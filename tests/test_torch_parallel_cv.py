@@ -1,7 +1,7 @@
 """The port's fold-parallel cross-validation against the JAX package's.
 
 Twins of every CV test of tests/test_parallel.py, run with mesh=None (one
-device; the port has no fold mesh yet and raises for one): the port's
+device; the fold mesh is tests/test_torch_multihost.py's): the port's
 `cv_fit(parallel=True)` is held to its serial `cv_fit` at the reference
 tests' own tolerances (rtol 0.05, atol 1e-3 or 2e-3; lambda_min equal),
 and its fold scores to the JAX package's `parallel_fold_scores` on the
@@ -250,11 +250,23 @@ def test_fold_tail_scaled_equals_repacked(dtype):
 
 
 def test_cv_mesh_raises():
-    """Folds over several devices are not ported: cv_fit(parallel=True,
-    cv_mesh=...) and parallel_fold_scores(mesh=...) raise, naming the
-    ROADMAP item, before any fit."""
+    """The fold mesh's errors, raised before any fit: a mesh asked for with
+    no process group, and a `device` beside the mesh that is not its own
+    (the fold mesh's scores are tests/test_torch_multihost.py's)."""
+    import torch.distributed as dist
+
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+    from sgdnet_tpu_torch.parallel.multihost import free_port, init_multihost
+
     x, y = random_data(n=60, p=3, seed=52)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tst.cv_fit(x, y, nfolds=3, parallel=True, cv_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t_fold_scores(x, y, np.arange(60) % 3, 3, 1.0, [0.1], mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+        make_mesh(axis="folds", device="cpu")
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh(axis="folds", device="cpu")
+        with pytest.raises(ValueError, match="not the mesh's device"):
+            tst.cv_fit(x, y, nfolds=3, parallel=True, cv_mesh=mesh, device="meta")
+        with pytest.raises(ValueError, match="not the mesh's device"):
+            t_fold_scores(x, y, np.arange(60) % 3, 3, 1.0, [0.1], mesh=mesh, device="meta")
+    finally:
+        dist.destroy_process_group()

@@ -12,7 +12,8 @@ import isolation and the keywords outside the slice.
   * `device=None` means the card: without one, fit, the layout constructors
     and the converters raise (every CPU run here asks for device="cpu");
   * keywords outside the ported slices raise NotImplementedError; the
-    screen keywords, ported now, fit and match the unscreened fit.
+    screen and mesh keywords, ported now, fit and match the same call
+    without them.
 """
 
 import os
@@ -180,6 +181,8 @@ def test_import_leaves_jax_out():
         "import sgdnet_tpu_torch.solver.tail_kernel, sgdnet_tpu_torch.core.sparse, scipy.sparse as sp\n"
         "import sgdnet_tpu_torch.tools.bench_epoch_kernel, sgdnet_tpu_torch.tools.bench_head_dma\n"
         "import sgdnet_tpu_torch.tools.bench_dma_streams, sgdnet_tpu_torch.core.layout\n"
+        "import sgdnet_tpu_torch.parallel.dist, sgdnet_tpu_torch.parallel.multihost\n"
+        "import sgdnet_tpu_torch.parallel.scaling, sgdnet_tpu_torch.graft_entry\n"
         "x, y = sgdnet_tpu_torch.load_wine()\n"
         "sgdnet_tpu_torch.fit(x, y, family='multinomial', nlambda=2, device='cpu')\n"
         "sgdnet_tpu_torch.fit(sp.csr_matrix(x), y, family='multinomial', nlambda=2, hybrid=True, device='cpu',\n"
@@ -223,29 +226,94 @@ def _cv_fit_object():
 
 
 @pytest.mark.parametrize("kw", [
-    ("fit", dict(mesh=object())),
-    ("fit", dict(mesh=object(), hybrid_max_head="auto")),
     ("fit", dict(lambda_chunk=4, sparse_mode="gather")),
     ("fit", dict(lambda_chunk=4)),
-    ("cv_fit", dict(parallel=True, cv_mesh=object())),
-    ("cv_fit", dict(mesh=object())),  # serial CV hands mesh to each fit
-    ("parallel_fold_scores", dict(mesh=object())),
     ("CvFit.plot", {}),
 ])
 def test_out_of_slice_keywords_raise(kw):
-    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
-
     entry, kwargs = kw
     x, y = tst.load_heart()
     calls = {
         "fit": lambda: tst.fit(x, y, family="binomial", device="cpu", **kwargs),
-        "cv_fit": lambda: tst.cv_fit(x, y, family="binomial", nfolds=3, device="cpu", **kwargs),
-        "parallel_fold_scores": lambda: parallel_fold_scores(x, y, np.arange(len(y)) % 3, 3, 1.0, [0.1],
-                                                             family="binomial", device="cpu", **kwargs),
         "CvFit.plot": lambda: _cv_fit_object().plot(),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[entry]()
+
+
+@pytest.fixture
+def one_rank():
+    """A process group of this process alone (gloo on the CPU), torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from sgdnet_tpu_torch.parallel.multihost import free_port, init_multihost
+
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw", [
+    ("fit", dict(mesh="data")),
+    ("fit", dict(mesh="data", hybrid_max_head="auto")),
+    ("fit", dict(mesh="data", use_pallas=True, sampling="block", dtype=np.float32)),
+    ("cv_fit", dict(parallel=True, cv_mesh="folds")),
+    ("cv_fit", dict(mesh="data")),  # serial CV hands mesh to each fit
+    ("parallel_fold_scores", dict(mesh="folds")),
+])
+def test_mesh_keywords_now_fit(one_rank, kw):
+    """The mesh keyword sets that raised before data-parallel fits were
+    ported run now, on a mesh of one gloo rank, and match the same call
+    without the mesh: a meshed fit (whose orders take its rank) at the
+    tolerance of tests/test_parallel.py (fits 2e-3 x scale, serial CV
+    scores rtol 0.05 and atol 1e-3), the fold mesh exactly (fold fits take
+    no rank)."""
+    from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+
+    entry, kwargs = kw
+    kwargs = {k: make_mesh(axis=v, device="cpu") if k in ("mesh", "cv_mesh") else v for k, v in kwargs.items()}
+    plain_kw = {k: v for k, v in kwargs.items() if k not in ("mesh", "cv_mesh")}
+    x, y = tst.load_heart()
+    common = dict(family="binomial", nlambda=5, thresh=1e-6, maxit=2000, device="cpu")
+    if entry == "fit":
+        f = tst.fit(x, y, **common, **kwargs)
+        plain = tst.fit(x, y, **{**common, **plain_kw, "nlambda": None, "lambda_path": f.lambda_})
+        assert f.stats["mesh"] == {"axis": "data", "size": 1, "rank": 0, "backend": "gloo"}
+        assert f.stats["allreduces"]["step"] > 0 and not f.stats["epoch_kernel"]
+        assert f.stats["head_kernel"] is bool(kwargs.get("use_pallas"))
+        scale = max(1.0, np.abs(plain.beta).max())
+        np.testing.assert_allclose(f.beta, plain.beta, atol=2e-3 * scale)
+    elif entry == "cv_fit":
+        cv_kw = dict(common, thresh=1e-4, nfolds=3)
+        cv = tst.cv_fit(x[:150], y[:150], **cv_kw, **kwargs)
+        plain = tst.cv_fit(x[:150], y[:150], **cv_kw, **plain_kw)
+        if "cv_mesh" in kwargs:
+            np.testing.assert_allclose(cv.cv_raw[0], plain.cv_raw[0], rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_allclose(cv.cv_raw[0], plain.cv_raw[0], rtol=0.05, atol=1e-3)
+    else:
+        lam = tst.fit(x, y, **common).lambda_
+        args = (x, y, np.arange(len(y)) % 3, 3, 1.0, lam)
+        scores = parallel_fold_scores(*args, family="binomial", device="cpu", **kwargs)
+        np.testing.assert_allclose(scores, parallel_fold_scores(*args, family="binomial", device="cpu"),
+                                   rtol=1e-12, atol=0)
+
+
+def test_screen_true_under_a_mesh_raises(one_rank):
+    """As in the JAX package: screen=True needs a single device, and
+    screen="auto" runs a meshed fit unscreened."""
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+
+    x, y = tst.load_heart()
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(ValueError, match="single device"):
+        tst.fit(x, y, family="binomial", nlambda=3, device="cpu", mesh=mesh, screen=True)
+    f = tst.fit(x, y, family="binomial", nlambda=3, device="cpu", mesh=mesh, screen="auto")
+    assert "screening" not in f.stats and f.stats["mesh"]["size"] == 1
 
 
 @pytest.mark.parametrize("kw", [
