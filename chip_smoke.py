@@ -28,7 +28,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   5. slice A: fit(abalone, gaussian, alpha=0.8) through K1, with its wall,
      epochs, K1 launches (chunks), host syncs and device busy share (as
      tools/profile_slice_a.py measures them), held against the plain step
-     path on the card over the first tenth of the path, predict/score,
+     path on the card over the first 5 lambdas of the path, predict/score,
      and a golden path;
   6. slice B: a 65536 x 784, 10-class dense multinomial fit through K2
      (10 lambdas), held against the plain step path on the card, with
@@ -51,7 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      47000, 76 nonzeros a row, Zipf columns; binomial, alpha 1, 10 lambdas)
      through fit() on a bf16 16384-wide hybrid head: K2 + K3 + K4 by
      default, held per lambda by penalized objective against the same fit
-     on plain torch ops; its K3 launches, walls, and the step it built run
+     on plain torch ops on the first 5 lambdas; its K3 launches, walls, and
+     the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
      products are torch), held the same way on the first 2 lambdas;
@@ -70,7 +71,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      tools.bench_dma_streams);
  13. slice E: slice D's data and settings with hybrid_max_head="auto", the
      head width the port's layout planner picks from the card's constants
-     (K3 + K4 on the tail it leaves), held the same way on the first 3
+     (K3 + K4 on the tail it leaves), held the same way on the first 2
      lambdas, with the plan's predicted epoch beside the measured one; then
      the same fit made afresh on the first 2 lambdas at the plan's width,
      half and twice it, and the plan's width again, each width's measured
@@ -81,12 +82,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      folds as weight masks over one design), both through K1, every fit
      and fold checked to launch it; the two held to each other as
      tests/test_parallel.py holds the JAX package's (cv_raw rtol 0.05, atol
-     1e-3; lambda_min equal), and two folds on the first 5 lambdas (slice
+     1e-3; lambda_min equal), and two folds on the first 3 lambdas (slice
      A's thresh) against the same folds on the plain step (1e-3
      relative);
  15. fold-parallel CV at the north-star width: slice C's data and settings
      on its 10-lambda path, 3 folds, use_pallas=True (K2 + K3 + K4 in
-     every fold), against the same call on plain torch ops on the first 3
+     every fold), against the same call on plain torch ops on the first 2
      lambdas (1e-3 relative), with each fold's wall beside slice C's unmasked path, the
      call's wall and peak device memory; then serial CV of the same folds
      (a fit on each fold's rows), each fit's wall;
@@ -113,10 +114,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ranks, each rank's peak device memory beside phase 9's; (c) CV-A over a
      fold mesh of the two ranks, K1 in every fold, its scores within 1e-6
      relative of phase 14's fold-parallel ones, lambda_min and lambda_1se
-     the same.
+     the same;
+ 18. the rest of the surface: (a) Protocol-4, `benchmarks.convergence.
+     run_reference_protocol` on the four bundled datasets, lasso and ridge
+     at lambda = 1/n, maxit 1000, 5 tolerances from 0.9 to 1e-3, through
+     K1 (every loss finite, the tightest no worse than the loosest, K1 in
+     every fit its gate admits), and `convergence_curve_trace` on heart
+     (its tail within 1e-3 relative of the sweep's tightest loss); (b)
+     Chunk-A, slice A with `lambda_chunk=25` through K1 against slice A
+     (2e-3 x scale, dev_ratio 1e-3, the same lambdas); (c) Ckpt-A, the
+     first 97 lambdas of slice A's path through K1, its state saved by
+     `utils.checkpoint.save_state` and loaded back onto the card bit for
+     bit, the last 3 lambdas resumed from it on the plain step under block
+     sampling against slice A's (2e-3 x scale), and under the default
+     permutation sampling (reported); (d) Libsvm-C, slice C's first 16384 rows written
+     as libsvm text and parsed by `utils.native.load_libsvm` (equal to the
+     rows in memory), K2 / K3 / K4 held to their twins at its fit's
+     shapes, then one lambda at slice C's settings fitted on it (K2 + K3 +
+     K4) against the same fit of the rows in memory (objective 1e-6
+     relative); the native library built under sgdnet_tpu_torch/_build/
+     and native/_sgdnet_native.so untouched; (e) `utils.profiling.trace`
+     around an abalone fit through K1, whose Chrome trace names
+     saga_epochs_kernel once a launch, and `time_fn` of a K1 epoch beside
+     phase 4's CUDA-event time.
 Each path (slices A-E, the three probe entry points, the CV calls, the
-screened fits and the meshed fits, in each rank) runs with the launch
-counts set to 0 just before it and read just after.  Then a JSON
+screened fits, the meshed fits, in each rank, and phase 18's) runs with
+the launch counts set to 0 just before it and read just after.  Then a JSON
 line with every number, one JSON line of the kernels, the card's name and
 power limit, and last {"ok": true, "device": {...}}.  The script needs
 the repository checkout and a CUDA device; it has no CPU path.
@@ -130,6 +153,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -180,7 +204,7 @@ def roofline(nbytes: float, flops: float, peak: float) -> dict:
 def device_ms(fn, reps: int, names) -> float | None:
     """Device time per call of fn over the kernels named in `names`
     (torch.profiler, per recorded launch; None where it saw none)."""
-    from sgdnet_tpu_torch.utils.device import kernel_device_ms
+    from sgdnet_tpu_torch.utils.profiling import kernel_device_ms
 
     return kernel_device_ms(fn, reps, names)
 
@@ -531,7 +555,8 @@ def phase_k1(rng, dev):
             "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, "device_ms": dev_ms,
             "no_refresh_ms": ms_nr, "no_refresh_device_ms": dev_nr, "refresh_ms": refresh_ms,
             "refresh_device_ms": refresh_dev, "step_us": step_us, "step_device_us": step_dev_us,
-            "chunk16_ms_per_epoch": ms_chunk, "chunk16_device_ms_per_epoch": dev_chunk}
+            "chunk16_ms_per_epoch": ms_chunk, "chunk16_device_ms_per_epoch": dev_chunk}, \
+        lambda: ek.saga_epoch(*timing_args)
 
 
 # ---------------------------------------------------------------------------
@@ -576,8 +601,8 @@ def check_slice_a(f, wall, launches, dev, card):
     check(np.isfinite(dr).all() and np.isfinite(f.beta).all(), "slice A: non-finite path")
     check(np.all(np.diff(dr) >= -1e-6), f"slice A: dev_ratio decreases along the path: {np.diff(dr).min()}")
     # the plain comparison fit takes a minute or more for the 100 lambdas on a
-    # host-bound path: it is made for the first tenth of the path
-    head_n = f.n_lambda // 10
+    # host-bound path: it is made for the first 5, for the run's time
+    head_n = 5
     t0 = time.perf_counter()
     f_plain = st.fit(x, y, family="gaussian", alpha=0.8, device=dev, use_epoch_kernel=False,
                      sampling="block", lambda_path=f.lambda_[:head_n])
@@ -938,7 +963,7 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
     warm-up fit (one lambda, one epoch); the busy share is the kernels' device time over the fit's
     wall, and the top kernels by device time with their calls."""
     import sgdnet_tpu_torch as st
-    from sgdnet_tpu_torch.utils.device import self_device_us as dev_us
+    from sgdnet_tpu_torch.utils.profiling import device_kernels, self_device_us as dev_us
     from torch.profiler import ProfilerActivity, profile
 
     short = dict(kw, nlambda=2, maxit=4)
@@ -950,7 +975,7 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    kern = device_kernels(prof)
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = [{"kernel": e.key[:60], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in
            sorted(kern, key=dev_us, reverse=True)[:6]]
@@ -1297,7 +1322,7 @@ def phase_cv_abalone(dev, card, launches) -> dict:
     fold-parallel, the full path through K1; each fold's K1 launches; the
     two held to each other as tests/test_parallel.py holds the JAX
     package's (cv_raw rtol 0.05, atol 1e-3; lambda_min equal); two folds of
-    the parallel path on the first 5 lambdas (slice A's thresh) against
+    the parallel path on the first 3 lambdas (slice A's thresh) against
     the plain step.  The fold-parallel scores are returned for phase 17's
     fold mesh."""
     import sgdnet_tpu_torch as st
@@ -1346,12 +1371,12 @@ def phase_cv_abalone(dev, card, launches) -> dict:
           f"lambda_min {cv_p.lambda_min:.6g} / {cv_s.lambda_min:.6g}, lambda_1se {cv_p.lambda_1se:.6g} / "
           f"{cv_s.lambda_1se:.6g}")
     check(rel <= 1.0 and same_min, "CV abalone: fold-parallel CV disagrees with serial CV")
-    # two of the folds on the first 5 lambdas, K1 against the plain step
+    # two of the folds on the first 3 lambdas, K1 against the plain step
     foldid = np.zeros(len(y), dtype=int)
     for j, chunk in enumerate(np.array_split(np.random.default_rng(0).permutation(len(y)), CV_A_FOLDS)):
         foldid[chunk] = j
-    lam5 = cv_s.lambda_[0][:5]
-    two = dict(alpha=0.8, lambda_path=lam5, family="gaussian", device=dev, sampling="block")  # slice A's thresh
+    lam3 = cv_s.lambda_[0][:3]
+    two = dict(alpha=0.8, lambda_path=lam3, family="gaussian", device=dev, sampling="block")  # slice A's thresh
     t0 = time.perf_counter()
     k1 = parallel_fold_scores(x, y, foldid, 2, **two)
     wall_k1 = time.perf_counter() - t0
@@ -1359,7 +1384,7 @@ def phase_cv_abalone(dev, card, launches) -> dict:
     plain = parallel_fold_scores(x, y, foldid, 2, use_epoch_kernel=False, **two)
     wall_plain = time.perf_counter() - t0
     rel2 = float(np.max(np.abs(k1 - plain) / np.abs(plain)))
-    print(f"  CV abalone folds 0-1, first 5 lambdas: K1 {wall_k1:.3f} s, plain step {wall_plain:.3f} s; scores "
+    print(f"  CV abalone folds 0-1, first 3 lambdas: K1 {wall_k1:.3f} s, plain step {wall_plain:.3f} s; scores "
           f"max rel diff {rel2:.3e} (bound 1e-3) [{card}]")
     check(rel2 <= 1e-3, "CV abalone: K1 folds disagree with the plain step")
     return {"serial_wall_s": wall_s, "parallel_wall_s": wall_p, "fold_walls_s": [f["wall_s"] for f in clock.folds],
@@ -1385,9 +1410,9 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
     kw = {k: v for k, v in SLICE_C.items() if k not in ("alpha", "nlambda", "lambda_min_ratio")}
     foldid = np.arange(csr.shape[0]) % 3
     out = {}
-    # the plain comparison on the first 3 lambdas of the path, for the run's time
+    # the plain comparison on the first 2 lambdas of the path, for the run's time
     for name, lam, extra in (("kernels", lam_c, dict(use_pallas=True)),
-                             ("plain", lam_c[:3], dict(use_pallas=False, use_tail_kernel=False))):
+                             ("plain", lam_c[:2], dict(use_pallas=False, use_tail_kernel=False))):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1408,8 +1433,8 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
           "CV slice C: a fold did not run through K2, K3 and K4")
     check(sum(f["K2"] + f["K3"] + f["K4"] for f in p_["folds"]) == 0, "CV slice C: the plain call ran a kernel")
     check(np.isfinite(k["scores"]).all() and k["scores"].shape == (3, len(lam_c)), "CV slice C: bad scores")
-    rel = float(np.max(np.abs(k["scores"][:, :3] - p_["scores"]) / np.abs(p_["scores"])))
-    print(f"  CV slice C kernels vs plain, the first 3 lambdas: scores max rel diff {rel:.3e} (bound 1e-3); mean deviance by lambda "
+    rel = float(np.max(np.abs(k["scores"][:, :2] - p_["scores"]) / np.abs(p_["scores"])))
+    print(f"  CV slice C kernels vs plain, the first 2 lambdas: scores max rel diff {rel:.3e} (bound 1e-3); mean deviance by lambda "
           f"{k['scores'].mean(axis=0).round(4)}")
     check(rel <= 1e-3, "CV slice C: the kernels' folds disagree with plain ops")
     walls, real_fit = [], cvmod.fit_fn
@@ -1865,6 +1890,300 @@ def phase_dp_shared(started, csr, y, sd, dp1, cv_a, slice_c, card, launches) -> 
             "cv_mesh_k1_launches_per_fold": [f["K1"] for f in folds], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the benchmark protocol, lambda_chunk, checkpoints, the libsvm
+# loader and profiling
+# ---------------------------------------------------------------------------
+
+#: the protocol's tolerances: 5 of the reference's 10 from 0.9 to 1e-3, for
+#: the run's time
+PROTOCOL_TOLERANCES = np.exp(np.linspace(np.log(0.9), np.log(1e-3), 5))
+#: Libsvm-C: slice C's first rows, two blocks of B 8192
+LIBSVM_ROWS = 16384
+
+
+def phase_protocol(dev, card, launches) -> dict:
+    """(a) Protocol-4: `run_reference_protocol` on the four bundled datasets,
+    lasso and ridge at lambda = 1/n, maxit 1000, through K1 where fit's gate
+    admits the fit; each fit's wall, epochs and loss, K1's launches a curve
+    (the fits' chunks); then `convergence_curve_trace` on heart, whose
+    tail loss must be within 1e-3 relative of the sweep's tightest point."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.benchmarks import convergence as conv
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    curves = conv.run_reference_protocol(device=dev, tolerances=PROTOCOL_TOLERANCES, maxit=1000)
+    wall = time.perf_counter() - t0
+    launches["protocol"] = _launches()
+    out, k1_total = {}, 0
+    for name, c in curves.items():
+        gate = [s["epoch_kernel"] for s in c["fits"]]
+        k1 = sum(s["epoch_chunks"] for s in c["fits"])
+        k1_total += k1
+        check(np.isfinite(c["losses"]).all(), f"protocol {name}: a loss is not finite: {c['losses']}")
+        check(c["losses"][-1] <= c["losses"][0] + 1e-6 * abs(c["losses"][0]),
+              f"protocol {name}: the tightest loss {c['losses'][-1]} is worse than the loosest {c['losses'][0]}")
+        check(all(k > 0 for g, k in zip(gate, (s["epoch_chunks"] for s in c["fits"])) if g),
+              f"protocol {name}: a fit that K1's gate admitted launched no K1")
+        print(f"  {name:16s} K1 gate {'all' if all(gate) else sum(gate)} of {len(gate)} fits, {k1} K1 launches; "
+              f"walls {[round(float(t), 4) for t in c['times']]} s, epochs {c['epochs'].tolist()}, loss "
+              f"{c['losses'][0]:.6g} -> {c['losses'][-1]:.6g} [{card}]")
+        out[name] = {"times_s": c["times"].tolist(), "epochs": c["epochs"].tolist(), "losses": c["losses"].tolist(),
+                     "k1_gate": gate, "k1_launches": k1}
+    check(launches["protocol"]["K1"] >= k1_total > 0, "the protocol's K1 launches are not its fits' chunks")
+    print(f"  protocol: {len(curves)} curves of {len(PROTOCOL_TOLERANCES)} tolerances in {wall:.2f} s, "
+          f"{launches['protocol']['K1']} K1 launches (with each curve's warm-up fit)")
+    xh, yh = st.load_heart()
+    _reset_launches()
+    t0 = time.perf_counter()
+    tr = conv.convergence_curve_trace(xh, yh, family="binomial", alpha=1.0, maxit=1000, device=dev)
+    wall_tr = time.perf_counter() - t0
+    launches["protocol_trace"] = _launches()
+    tight = curves["heart/lasso"]["losses"][-1]
+    rel = abs(tr["losses"][-1] - tight) / abs(tight)
+    tm = tr["time_model"]
+    print(f"  heart/lasso trace: {wall_tr:.2f} s, {int(tr['epochs'][-1])} epochs of the debug fit (plain step), "
+          f"time model {tm['overhead_s']:.4f} s + {tm['epoch_s'] * 1e3:.4f} ms an epoch from "
+          f"{[(round(w, 4), e) for w, e in tm['measured']]}; tail loss {tr['losses'][-1]:.6g} vs the sweep's "
+          f"tightest {tight:.6g}: rel {rel:.3e} (bound 1e-3); K1 {launches['protocol_trace']['K1']} launches [{card}]")
+    check(np.isfinite(tr["losses"]).all() and rel <= 1e-3, "the heart trace misses its sweep's tightest point")
+    return {"curves": out, "wall_s": wall, "trace": {"wall_s": wall_tr, "epochs": int(tr["epochs"][-1]),
+                                                     "time_model": tm, "tail_rel_diff": rel}}
+
+
+def phase_chunk_a(ref_a, dev, card, launches) -> dict:
+    """(b) Chunk-A: slice A's fit with lambda_chunk=25 through K1, against
+    slice A's unchunked fit (tests/test_lambda_path.py's bounds:
+    coefficients within 2e-3 x scale, dev_ratio within 1e-3, the same
+    lambdas)."""
+    import sgdnet_tpu_torch as st
+
+    x, y = st.load_abalone()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    f = st.fit(x, y, family="gaussian", alpha=0.8, lambda_chunk=25, device=dev)
+    wall = time.perf_counter() - t0
+    launches["chunk_a"] = _launches()
+    ch = f.stats["lambda_chunk"]
+    scale = max(1.0, float(np.abs(ref_a.beta).max()))
+    rel = float(np.abs(f.beta - ref_a.beta).max()) / scale
+    dr = float(np.abs(f.dev_ratio - ref_a.dev_ratio).max())
+    print(f"  Chunk-A (abalone, 100 lambdas in chunks of 25, K1): {wall:.3f} s wall ({f.stats['wall_time_s']:.3f} s "
+          f"path), npasses {f.npasses} (unchunked {ref_a.npasses}), {ch['chunks']} chunks, refit at half the step: "
+          f"{ch['refits']}, halvings kept {ch['backoff']}; {launches['chunk_a']['K1']} K1 launches; vs slice A: "
+          f"max|dbeta|/scale {rel:.3e} (bound 2e-3), max|d dev_ratio| {dr:.3e} (bound 1e-3) [{card}]")
+    check(f.stats["epoch_kernel"] is True and launches["chunk_a"]["K1"] == f.stats["epoch_chunks"] > 0,
+          "Chunk-A did not run through K1, or its launches are not its chunks")
+    check(np.array_equal(f.lambda_, ref_a.lambda_), "Chunk-A's lambdas are not slice A's")
+    check(rel <= 2e-3 and dr <= 1e-3, "Chunk-A disagrees with slice A's unchunked path")
+    return {"wall_s": wall, "path_s": f.stats["wall_time_s"], "npasses": f.npasses, **ch,
+            "beta_rel_diff": rel, "dev_ratio_diff": dr}
+
+
+def phase_ckpt_a(ref_a, dev, card, launches) -> dict:
+    """(c) Ckpt-A: slice A's first 97 lambdas through K1, the state saved
+    and loaded back onto the card bit for bit, the last 3 resumed from it
+    against slice A's last 3 within 2e-3 x scale (tests/test_checkpoint.py's
+    bound).  A warm state takes the plain step (K1 refuses one).  Slice A
+    runs block sampling, which shuffles the rows with the seed's
+    permutation, so the state's g_mem is in that row order: the resume
+    that is held to the bound passes sampling="block" (the same shuffle,
+    its g_mem in line with its rows).  The default resume (permutation
+    sampling, as in the JAX package) starts from a g_mem out of line with
+    its rows and stops sooner at slice A's thresh: it runs too, and its
+    distance is reported."""
+    import tempfile
+
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.utils.checkpoint import load_state, save_state
+
+    x, y = st.load_abalone()
+    kw = dict(family="gaussian", alpha=0.8, device=dev)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    head = st.fit(x, y, lambda_path=ref_a.lambda_[:97], **kw)
+    wall_head = time.perf_counter() - t0
+    launches["ckpt_head"] = _launches()
+    check(head.stats["epoch_kernel"] is True and launches["ckpt_head"]["K1"] > 0, "Ckpt-A's head did not run K1")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(path, head.final_state, meta={"lambda": head.lambda_.tolist()})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        state, meta = load_state(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same = all(a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(state, head.final_state))
+    check(same and meta["lambda"] == head.lambda_.tolist(), "Ckpt-A: the state did not come back bit for bit")
+    scale = max(1.0, float(np.abs(ref_a.beta).max()))
+    res = {}
+    for name, sampling in (("block", "block"), ("default", None)):
+        _reset_launches()
+        t0 = time.perf_counter()
+        tail = st.fit(x, y, lambda_path=ref_a.lambda_[97:], warm_state=state, sampling=sampling, **kw)
+        wall = time.perf_counter() - t0
+        launches[f"ckpt_resume_{name}"] = _launches()
+        check(tail.stats["epoch_kernel"] is False and np.isfinite(tail.beta).all(),
+              f"Ckpt-A's {name} resume ran K1 or is not finite")
+        res[name] = {"wall_s": wall, "epochs": tail.npasses, "sampling": tail._refit_args["sampling"],
+                     "beta_rel_diff": float(np.abs(tail.beta - ref_a.beta[97:]).max()) / scale}
+    b, p_ = res["block"], res["default"]
+    print(f"  Ckpt-A: head (97 lambdas, K1) {wall_head:.3f} s, {launches['ckpt_head']['K1']} K1 launches; the state "
+          f"({', '.join(f'{n} {tuple(t.shape)}' for n, t in zip(state._fields, state))}) in {nbytes} bytes, saved "
+          f"in {save_s * 1e3:.2f} ms, loaded onto the card in {load_s * 1e3:.2f} ms, every field bit for bit: "
+          f"{same} [{card}]")
+    print(f"  Ckpt-A resume, the last 3 lambdas on the plain step: block sampling {b['wall_s']:.3f} s, {b['epochs']} "
+          f"epochs, max|dbeta|/scale {b['beta_rel_diff']:.3e} from slice A's (bound 2e-3); the default "
+          f"({p_['sampling']}, g_mem out of line with the rows) {p_['wall_s']:.3f} s, {p_['epochs']} epochs, "
+          f"{p_['beta_rel_diff']:.3e} [{card}]")
+    check(b["beta_rel_diff"] <= 2e-3, "Ckpt-A's resume disagrees with slice A's last lambdas")
+    return {"head_wall_s": wall_head, "bytes": nbytes, "save_s": save_s, "load_s": load_s, "bit_for_bit": same,
+            "resume": res}
+
+
+def _libsvm_text(x, y) -> bytes:
+    """x's rows as libsvm lines (1-based columns), each value as Python's
+    shortest round-trip form of its double, so a parse gives it back
+    exactly."""
+    ip, ix, vals, labels = x.indptr, (x.indices + 1).tolist(), x.data.astype(np.float64).tolist(), y.tolist()
+    lines = []
+    for i in range(x.shape[0]):
+        a, b = ip[i], ip[i + 1]
+        lines.append(f"{labels[i]!r} " + " ".join(f"{j}:{v!r}" for j, v in zip(ix[a:b], vals[a:b])))
+    return ("\n".join(lines) + "\n").encode()
+
+
+def phase_libsvm(csr, y_sp, lam_c, rng, dev, seed, card, launches) -> dict:
+    """(d) Libsvm-C: slice C's first 16384 rows written as libsvm text and
+    parsed by the port's native loader (equal to the rows in memory, bit
+    for bit), then one lambda at slice C's settings fitted on the parsed
+    design (K2 + K3 + K4, each held to its twin first at this fit's
+    shapes) against the same fit of the rows in memory (objective within
+    1e-6 relative).  The loader's library is built under
+    sgdnet_tpu_torch/_build/; the JAX package's native/_sgdnet_native.so
+    keeps its bytes and mtime."""
+    import hashlib
+
+    import scipy.sparse as sp
+
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.core.sparse import HybridCSR, scipy_column_stats
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_C
+    from sgdnet_tpu_torch.utils import native
+
+    jax_so = os.path.join(ROOT, "native", "_sgdnet_native.so")
+
+    def so_id():
+        with open(jax_so, "rb") as f:
+            return os.stat(jax_so).st_mtime_ns, hashlib.sha256(f.read()).hexdigest()
+
+    before = so_id()
+    n, B = LIBSVM_ROWS, SLICE_C["batch_size"]
+    ip = csr.indptr[: n + 1]
+    cols = csr.indices[: ip[-1]]
+    x_mem = sp.csr_matrix((csr.data[: ip[-1]], cols, ip), shape=(n, int(cols.max()) + 1))
+    y_mem = y_sp[:n].astype(np.float64)
+    t0 = time.perf_counter()
+    buf = _libsvm_text(x_mem, y_mem)
+    write_s = time.perf_counter() - t0
+    threads = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_p, y_p = native.load_libsvm(buf, n_threads=threads)
+    parse_s = time.perf_counter() - t0
+    equal = (x_p.shape == x_mem.shape and np.array_equal(x_p.indptr, x_mem.indptr)
+             and np.array_equal(x_p.indices, x_mem.indices) and np.array_equal(x_p.data, x_mem.data.astype(np.float64))
+             and np.array_equal(y_p, y_mem))
+    print(f"  Libsvm-C: {n} rows x {x_mem.shape[1]} columns, {x_mem.nnz} nonzeros, {len(buf)} bytes of text "
+          f"(written in {write_s:.2f} s); parsed in {parse_s:.4f} s = {len(buf) / parse_s / 1e6:.1f} MB/s on "
+          f"{threads} threads (the library built or loaded in {build_s:.2f} s at "
+          f"{os.path.relpath(native.SO, ROOT)}); indptr, indices, values and labels equal to the rows in "
+          f"memory: {equal}")
+    check(equal, "Libsvm-C: the parse differs from the rows in memory")
+    check(os.path.dirname(native.SO) == os.path.join(ROOT, "sgdnet_tpu_torch", "_build")
+          and os.path.exists(native.SO), "the native library is not under sgdnet_tpu_torch/_build/")
+    # K2 / K3 / K4 against their twins at this fit's shapes first
+    _, k2_err = _k2_bf16_case(rng, dev, seed, n, B)
+    th, _ = HybridCSR.split_columns(x_p, coverage=SLICE_C["hybrid_coverage"], max_head=SLICE_C["hybrid_max_head"],
+                                    memory_budget=SLICE_C["hybrid_memory_budget"], head_dtype="bfloat16", device=dev)
+    bt = _packed_tail(th.tail, n, B, seed, dev)
+    th = None
+    tail_err = 0.0
+    for blk in range(bt.n_blocks):
+        tail_err = max(tail_err, _tail_block_check(tk, bt, blk, rng, dev, "Libsvm-C")[1])
+    print(f"  K3 / K4 on Libsvm-C's {bt.n_blocks} blocks (E {bt.rows.shape[1]}, K3 {bt.lanes} lanes a row): worst "
+          f"abs err {tail_err:.3e} (rel bound 1e-5), bits identical over two runs")
+    bt = None
+    kw = {**SLICE_C, "lambda_path": [float(lam_c[-1])]}
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    f = st.fit(x_p, y_p, device=dev, seed=seed, **kw)
+    wall = time.perf_counter() - t0
+    launches["libsvm_c"] = _launches()
+    fm = st.fit(x_mem, y_mem, device=dev, seed=seed, **kw)
+    sd = scipy_column_stats(x_mem)[1]
+    obj, obj_m = _objective(f, x_mem, y_mem, sd)[0], _objective(fm, x_mem, y_mem, sd)[0]
+    rel = abs(obj - obj_m) / abs(obj_m)
+    lay = f.stats["layout"]
+    print(f"  Libsvm-C fit (lambda {kw['lambda_path'][0]:.5g}, {lay['head_dtype']} head {lay['head_width']} wide, B "
+          f"{B}): {wall:.3f} s wall, {f.npasses} epochs, launches K2 {launches['libsvm_c']['K2']}, K3 "
+          f"{launches['libsvm_c']['K3']}, K4 {launches['libsvm_c']['K4']}; objective {obj:.8g} vs the rows in "
+          f"memory {obj_m:.8g}: rel {rel:.3e} (bound 1e-6) [{card}]")
+    check(all(launches["libsvm_c"][k] > 0 for k in ("K2", "K3", "K4")), "Libsvm-C's fit did not run K2, K3 and K4")
+    check(rel <= 1e-6, "Libsvm-C: the parsed design's fit disagrees with the rows in memory")
+    check(so_id() == before, "native/_sgdnet_native.so changed during phase 18")
+    return {"rows": n, "cols": x_mem.shape[1], "nnz": x_mem.nnz, "bytes": len(buf), "parse_s": parse_s,
+            "mb_per_s": len(buf) / parse_s / 1e6, "threads": threads, "wall_s": wall, "epochs": f.npasses,
+            "objective_rel_diff": rel, "k2_max_abs_err": k2_err, "tail_max_abs_err": tail_err}
+
+
+def phase_trace(k1_epoch, k1, dev, card, launches) -> dict:
+    """(e) utils/profiling: `trace()` around one abalone fit through K1 (20
+    lambdas), whose Chrome trace must name saga_epochs_kernel once a K1
+    launch; `time_fn` of one K1 epoch beside phase 4's CUDA-event time."""
+    import tempfile
+
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.utils import profiling
+
+    x, y = st.load_abalone()
+    torch.cuda.synchronize()
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with profiling.trace(d):
+            f = st.fit(x, y, family="gaussian", alpha=0.8, nlambda=20, device=dev)
+        wall = time.perf_counter() - t0
+        tpath = os.path.join(d, profiling.TRACE_FILE)
+        tbytes = os.path.getsize(tpath)
+        with open(tpath) as fh:
+            events = json.load(fh)["traceEvents"]
+    launches["trace_a"] = _launches()
+    named = sum(1 for e in events if e.get("cat") == "kernel" and "saga_epochs_kernel" in e.get("name", ""))
+    k1_s = profiling.time_fn(k1_epoch, iters=50, warmup=2)
+    print(f"  trace(): abalone, 20 lambdas through K1 in {wall:.3f} s under the profiler; the Chrome trace "
+          f"({tbytes} bytes, {len(events)} events) names saga_epochs_kernel {named} times; the fit's K1 launches "
+          f"{launches['trace_a']['K1']}, its chunks {f.stats['epoch_chunks']} [{card}]")
+    print(f"  time_fn, one abalone K1 epoch: {k1_s * 1e3:.4f} ms a call (host clock, synchronized) beside phase 4's "
+          f"{k1['ms']:.4f} ms (CUDA events) [{card}]")
+    check(f.stats["epoch_kernel"] is True and named == launches["trace_a"]["K1"] == f.stats["epoch_chunks"] > 0,
+          "the trace's saga_epochs_kernel count is not the fit's K1 launches")
+    return {"wall_s": wall, "trace_bytes": tbytes, "trace_k1_kernels": named, "time_fn_epoch_ms": k1_s * 1e3,
+            "cuda_events_epoch_ms": k1["ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
@@ -1901,7 +2220,7 @@ def main(argv=None) -> int:
     phase("phase 3: K2 vs twin")
     k2 = phase_k2(rng, dev)
     phase("phase 4: K1 vs twin")
-    k1 = phase_k1(rng, dev)
+    k1, k1_epoch = phase_k1(rng, dev)
 
     phase("phase 7: K3 / K4 vs twins")
     from sgdnet_tpu_torch.core.sparse import scipy_column_stats
@@ -1927,6 +2246,7 @@ def main(argv=None) -> int:
     print(f"  launches: slice A {launches['A']}, slice B {launches['B']}")
     phase("phase 5: slice A")
     slice_a = check_slice_a(fit_a, wall_a, launches["A"]["K1"], dev, card)
+    ref_a = SimpleNamespace(beta=fit_a.beta, dev_ratio=fit_a.dev_ratio, lambda_=fit_a.lambda_, npasses=fit_a.npasses)
     phase("phase 6: slice B")
     slice_b = check_slice_b(fit_b, wall_b, launches["B"]["K2"], xt, y, dev, card, args.seed)
     fit_a = fit_b = xt = None
@@ -1935,7 +2255,7 @@ def main(argv=None) -> int:
     fit_c, wall_c, peak_c, step_c = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_C)
     launches["C"] = _launches()
     slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], step_c, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_C, card)
+                                 SLICE_C, card, plain_lambdas=5)
     lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
     fit_c = step_c = None
     phase("phase 10: slice D")
@@ -1959,7 +2279,7 @@ def main(argv=None) -> int:
     fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
     launches["E"] = _launches()
     slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_E, card, plain_lambdas=3)
+                                 SLICE_E, card, plain_lambdas=2)
     step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
     # the widths on the first 2 lambdas of the path: ms an epoch is what they compare
@@ -1990,30 +2310,47 @@ def main(argv=None) -> int:
     dp1 = phase_dp_c1(csr, y_sp, sd, lam_c, obj_c, slice_c, dev, args.seed, card, launches)
     phase("phase 17 (b), (c): DP-C2 and CV-A over a fold mesh, 2 spawned ranks sharing the card (gloo)")
     dp2 = phase_dp_shared(dp_ranks, csr, y_sp, sd, dp1, cv_a, slice_c, card, launches)
+    torch.cuda.empty_cache()
+    phase("phase 18 (a): Protocol-4, the reference's benchmark protocol on the bundled datasets (K1)")
+    protocol = phase_protocol(dev, card, launches)
+    phase("phase 18 (b): Chunk-A, slice A in chunks of 25 lambdas (K1)")
+    chunk_a = phase_chunk_a(ref_a, dev, card, launches)
+    phase("phase 18 (c): Ckpt-A, a checkpoint of slice A's head, loaded and resumed")
+    ckpt_a = phase_ckpt_a(ref_a, dev, card, launches)
+    phase("phase 18 (d): Libsvm-C, slice C's first rows through the libsvm loader and fit (K2 + K3 + K4)")
+    libsvm_c = phase_libsvm(csr, y_sp, lam_c, rng, dev, args.seed, card, launches)
+    k2w["max_abs_err"] = max(k2w["max_abs_err"], libsvm_c["k2_max_abs_err"])
+    for k in (k3, k4):
+        k["max_abs_err"] = max(k["max_abs_err"], libsvm_c["tail_max_abs_err"])
+    phase("phase 18 (e): trace() around an abalone fit through K1; time_fn of a K1 epoch")
+    trace_a = phase_trace(k1_epoch, k1, dev, card, launches)
     phase("every phase passed")
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
                       "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
                       "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening,
-                      "data_parallel": {"dp_c1": dp1, **dp2}}))
+                      "data_parallel": {"dp_c1": dp1, **dp2},
+                      "surface": {"protocol": protocol, "chunk_a": chunk_a, "ckpt_a": ckpt_a, "libsvm_c": libsvm_c,
+                                  "trace_a": trace_a}}))
 
     def by_path(key, paths):
         return {"launches": sum(launches[p][key] for p in paths),
                 "launches_by_path": {p: launches[p][key] for p in paths}}
 
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
-    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2"]
+    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2", "libsvm_c"]
     probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
         {"name": "saga_epochs (K1), one abalone epoch", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/epoch_kernel.cu",
          "replaces": "sgdnet_tpu/solver/epoch_kernel.py:290",
-         **by_path("K1", ["A", "cv_serial", "cv_parallel", "cv_mesh"]), **k1},
+         **by_path("K1", ["A", "cv_serial", "cv_parallel", "cv_mesh", "protocol", "protocol_trace", "chunk_a",
+                          "ckpt_head", "trace_a"]), **k1},
         {"name": "fused_head_step_at (K2), f32 D=784 k=10 B=4096", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", "B"), **k2},
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
-         **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2"]), **k2w},
+         **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2", "libsvm_c"]), **k2w},
         {"name": "fused_head_step_at (K2), f32 screened subsets, D=512 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", ["screen_true_c", "screen_auto_c", "screen_true_wide", "screen_auto_wide"]), **k2s},

@@ -9,12 +9,15 @@ use).  This package imports neither `jax` nor `sgdnet_tpu`.
 from sgdnet_tpu_torch.api.fit import SgdnetFit, fit
 from sgdnet_tpu_torch.api.predict import predict
 from sgdnet_tpu_torch.api.score import score
+from sgdnet_tpu_torch.core.layout import LayoutPlan, plan_layout
+from sgdnet_tpu_torch.core.sparse import PaddedCSR
 from sgdnet_tpu_torch.data import load_abalone, load_dataset, load_heart, load_student, load_wine
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "fit", "predict", "score", "SgdnetFit", "cv_fit",
+    "fit", "predict", "score", "SgdnetFit", "PaddedCSR", "cv_fit",
+    "plan_layout", "LayoutPlan",
     "load_dataset", "load_abalone", "load_heart", "load_wine", "load_student",
 ]
 

@@ -57,7 +57,9 @@ class CvFit:
         return self.fit.deviance()
 
     def plot(self, **kwargs):
-        raise NotImplementedError("plotting is not ported to sgdnet_tpu_torch yet (ROADMAP Queue 1 item 5)")
+        from sgdnet_tpu_torch.api.plot import plot_cv
+
+        return plot_cv(self, **kwargs)
 
     def summary(self) -> str:
         """Text summary."""

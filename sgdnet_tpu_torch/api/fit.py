@@ -25,8 +25,10 @@ from sgdnet_tpu_torch.core.sparse import (
 from sgdnet_tpu_torch.families import get_family, lambda_max_offset
 from sgdnet_tpu_torch.parallel.dist import pad_to_shards, shard_path_inputs
 from sgdnet_tpu_torch.penalties import select_penalty
-from sgdnet_tpu_torch.solver import epoch_kernel
-from sgdnet_tpu_torch.solver.saga import SagaState, SolverConfig, fit_path, init_state, uses_head_kernel
+from sgdnet_tpu_torch.solver import epoch_kernel, saga
+from sgdnet_tpu_torch.solver.saga import (
+    PathResults, SagaState, SolverConfig, backoff_path, fit_path, init_state, order_count, uses_head_kernel,
+)
 from sgdnet_tpu_torch.solver.screening import screened_path
 from sgdnet_tpu_torch.solver.stepsize import power_iteration_sq_norm, saga_step_sizes
 from sgdnet_tpu_torch.utils.device import resolve_device
@@ -102,6 +104,11 @@ class SgdnetFit:
 
         return score(self, x, y, type_measure=type_measure, s=s, offset=offset)
 
+    def plot(self, **kwargs):
+        from sgdnet_tpu_torch.api.plot import plot_path
+
+        return plot_path(self, **kwargs)
+
     def __repr__(self):
         return (
             f"SgdnetFit(family={self.family!r}, alpha={self.alpha}, "
@@ -145,10 +152,6 @@ def mesh_device(mesh, device) -> torch.device:
         if asked.type != mesh.device.type or asked.index not in (None, mesh.device.index):
             raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
     return mesh.device
-
-
-def _not_in_slice(name: str, item: str):
-    raise NotImplementedError(f"{name} is not ported to sgdnet_tpu_torch yet (ROADMAP Queue 1 item {item})")
 
 
 def _layout_stats(x) -> dict:
@@ -412,6 +415,37 @@ def _as_design_matrix(x, dtype, dev, hybrid=None, hybrid_coverage=0.9, hybrid_ma
                   hybrid_coverage)
 
 
+def _chunked_path(fit_chunk, state0, n_lambda: int, size: int, tol: float):
+    """The path in warm-started chunks of `size` lambdas: `fit_chunk(lo,
+    hi, state, gmul, try_)` fits lambdas lo..hi-1 from `state` at gammas
+    times gmul (fit_path's returns), each chunk under the sticky step
+    backoff of `backoff_path`.  Every attempt counts in the epochs and in
+    the K1 launches.  Returns (final state, epochs, the chunks' PathResults
+    concatenated, {"chunks", "refits": the starts of the chunks refit at
+    half the step, "backoff": the halvings kept, "epoch_chunks"})."""
+    state, n_iter, parts, bk = state0, 0, [], 0
+    record = {"chunks": 0, "refits": [], "epoch_chunks": 0}
+
+    def account(out):
+        nonlocal n_iter
+        n_iter += int(out[1])
+        record["epoch_chunks"] += int(out[2].n_chunks.sum())
+
+    for lo in range(0, n_lambda, size):
+        hi = min(lo + size, n_lambda)
+
+        def run_one(gmul, try_, lo=lo, hi=hi, state_in=state):
+            if try_:
+                record["refits"].append(lo)
+            return fit_chunk(lo, hi, state_in, gmul, try_)
+
+        (state, _, res), bk = backoff_path(run_one, bk, tol, account)
+        parts.append(res)
+        record["chunks"] += 1
+    results = PathResults(*(np.concatenate([getattr(p, f) for p in parts]) for f in PathResults._fields))
+    return state, n_iter, results, dict(record, backoff=bk)
+
+
 def fit(
     x,
     y,
@@ -510,15 +544,22 @@ def fit(
     under a mesh, K2 only with `use_pallas=True`; `screen="auto"` runs
     unscreened and `screen=True` raises.  Every rank returns the same path.
 
-    Not ported yet, and raising NotImplementedError: `lambda_chunk`.
+    `lambda_chunk` fits the path in warm-started chunks of that many
+    lambdas, one fit_path call each, as the JAX package does: a chunk draws
+    its orders under the salt lo + 1000 * try (the JAX package's
+    fold_in(key, lo + 1000 * try)), and a suspicious chunk is refit at half
+    the step and kept only if better (`solver.saga.backoff_path`);
+    `stats["lambda_chunk"]` records the chunks, the starts of those refit
+    and the halvings kept.  Under `screen="auto"` it chunks the full-layout
+    tail; a mesh fit ignores it, as the JAX package's does.
     """
-    # ---- keywords outside the slice ----
+    # ---- keywords ----
     if screen not in (False, True, "auto"):
         raise ValueError(f"screen must be False, True, or 'auto'; got {screen!r}")
     if isinstance(hybrid_max_head, str) and hybrid_max_head != "auto":
         raise ValueError(f"hybrid_max_head must be an int or 'auto'; got {hybrid_max_head!r}")
-    if lambda_chunk is not None:
-        _not_in_slice("lambda_chunk", "5 (relay workaround, not ported)")
+    if lambda_chunk is not None and lambda_chunk < 1:
+        raise ValueError(f"lambda_chunk must be a positive number of lambdas; got {lambda_chunk!r}")
     if sparse_mode not in (None, "densify", "gather"):
         raise ValueError("sparse_mode must be 'densify' or 'gather'")
 
@@ -810,17 +851,26 @@ def fit(
         counts0 = dict(mesh.counts)
 
     t0 = time.perf_counter()
-    scr_stats = None
+    scr_stats = chunk_stats = None
     if screen:
         w_scr, b_scr, dev_scr, it_scr, codes_scr, n_iter, scr_stats = screened_path(
             x, y_proc, weights, gammas, l1s, l2s, thresh, fam, penalty, config, xc=xc, pf=pf_dev, box=box,
             always_inactive=excl_mask, offs=offs_dev,
             intercept0=None if offs_dev is None else b0_offs.cpu().numpy(), auto_full_tail=screen == "auto",
-            seed=seed,
+            full_tail_chunk=lambda_chunk, seed=seed,
         )
         state = None
         results = SimpleNamespace(w=w_scr, intercept=b_scr, deviance=dev_scr, return_codes=codes_scr,
                                   losses=np.zeros((len(l1s), 0)), clamp_gap=np.zeros(len(l1s)))
+    elif mesh is None and lambda_chunk is not None and lambda_chunk < len(l1s):
+        n_orders = order_count(config, n_pad)
+
+        def fit_chunk(lo, hi, st, gmul, try_):
+            return fit_path(x, y_proc, weights, gammas[lo:hi] * gmul, l1s[lo:hi], l2s[lo:hi], thresh, st, fam,
+                            penalty, config, offs=offs_dev, pf=pf_dev, box=box, xc=xc,
+                            order_fn=saga.default_order_fn(seed, n_orders, lo + 1000 * try_))
+
+        state, n_iter, results, chunk_stats = _chunked_path(fit_chunk, state0, len(l1s), lambda_chunk, thresh)
     else:
         state, n_iter, results = fit_path(
             x, y_proc, weights, gammas, l1s, l2s, thresh, state0, fam, penalty, config,
@@ -840,7 +890,8 @@ def fit(
         "device": str(dev),
         "epoch_kernel": config.use_epoch_kernel,
         # K1 launches over the path (each a chunk of epochs, with one sync)
-        "epoch_chunks": scr_stats["epoch_chunks"] if screen else int(results.n_chunks.sum()),
+        "epoch_chunks": (scr_stats["epoch_chunks"] if screen else chunk_stats["epoch_chunks"] if chunk_stats
+                         else int(results.n_chunks.sum())),
         "head_kernel": scr_stats["head_kernel"] if screen else (not config.use_epoch_kernel
                                                                 and uses_head_kernel(x, fam, config)),
         # K3 / K4 ran: on a screened path only where a group fitted the full layout
@@ -848,6 +899,8 @@ def fit(
                                                                 and use_tail_kernel),
         "layout_plan": None if layout_plan is None else asdict(layout_plan),
     }
+    if chunk_stats is not None:
+        stats["lambda_chunk"] = {k: v for k, v in chunk_stats.items() if k != "epoch_chunks"}
     if mesh is not None:
         stats["mesh"] = {"axis": mesh.axis, "size": mesh.size, "rank": mesh.rank, "backend": mesh.backend}
         stats["allreduces"] = {k: v - counts0.get(k, 0) for k, v in mesh.counts.items()}

@@ -751,3 +751,35 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         n_chunks=np.asarray(outs["n_chunks"], np.int32),
     )
     return unpad(state), n_iter, results
+
+
+def backoff_path(run_one, bk: int, tol: float, account):
+    """The step backoff of a call of fit_path over a part of the path (a
+    screening group, a `lambda_chunk` chunk), sticky along the path:
+    `run_one(gmul, try_)` returns fit_path's (state, epochs, PathResults)
+    at gammas times gmul.  A suspicious result (a lambda that hit max_iter
+    with a final change above 10 x tol) is refit at half the step, twice at
+    most, and the refit is kept only if it is better (fewer lambdas at
+    max_iter, then a lower total deviance); the halving then sticks.
+    `account(out)` sees every attempt.  Returns (the kept attempt, bk)."""
+
+    def suspicious(res):
+        return bool(np.any((res.return_codes == 1) & (res.final_change > 10.0 * tol)))
+
+    def better(a, b):
+        ca, cb = int((a.return_codes == 1).sum()), int((b.return_codes == 1).sum())
+        if ca != cb:
+            return ca < cb
+        return float(np.sum(a.deviance)) < float(np.sum(b.deviance))
+
+    best = run_one(0.5 ** bk, 0)
+    account(best)
+    for try_ in (1, 2):
+        if not suspicious(best[2]):
+            break
+        cand = run_one(0.5 ** (bk + 1), try_)
+        account(cand)
+        if not better(cand[2], best[2]):
+            break  # slow but stable: the original trajectory stays
+        best, bk = cand, bk + 1
+    return best, bk

@@ -136,6 +136,7 @@ def screened_path(
     full_fallback_frac: float = 0.35,
     subset_mem_budget: float = 8e9,
     auto_full_tail: bool = False,
+    full_tail_chunk: int | None = None,
     seed: int = 0,
 ):
     """Strong-rule screened warm-started path.  Returns (w_path (nl, k, p),
@@ -147,7 +148,9 @@ def screened_path(
     features active, or a subset over `subset_mem_budget`) runs the rest of
     the path as one warm-started full-layout fit_path call, the
     screen=False schedule; stats["full_tail_from"] is the switch's lambda
-    index (None: the whole path stayed screened)."""
+    index (None: the whole path stayed screened).  `full_tail_chunk` runs
+    that tail in warm-started chunks of as many lambdas, one call each (fit
+    passes its `lambda_chunk`)."""
     n_pad, p = x.shape[0], x.shape[1]
     k = family.n_classes
     dtype, dev = y.dtype, y.device
@@ -203,6 +206,11 @@ def screened_path(
     bk = 0
     tol_f = float(np.asarray(tol))
     full_tail_from = None
+    in_full_tail = False
+
+    def tail_end(li):
+        """Where the full-layout tail's call from li ends."""
+        return min(li + (full_tail_chunk or nl - li), nl)
 
     def fit_backoff(run_one, count_work):
         nonlocal bk
@@ -213,29 +221,7 @@ def screened_path(
             totals["work"] += n_it * count_work
             totals["chunks"] += int(out[2].n_chunks.sum())
 
-        def suspicious(out):
-            return bool(np.any((out[2].return_codes == 1) & (out[2].final_change > 10.0 * tol_f)))
-
-        def better(a, b):
-            """a strictly better than b: fewer non-converged lambdas, then
-            lower total deviance."""
-            ca, cb = int((a[2].return_codes == 1).sum()), int((b[2].return_codes == 1).sum())
-            if ca != cb:
-                return ca < cb
-            return float(np.asarray(a[2].deviance).sum()) < float(np.asarray(b[2].deviance).sum())
-
-        best = run_one(0.5 ** bk, 0)
-        account(best)
-        for try_ in (1, 2):
-            if not suspicious(best):
-                break
-            cand = run_one(0.5 ** (bk + 1), try_)
-            account(cand)
-            if better(cand, best):
-                best = cand
-                bk += 1
-            else:
-                break
+        best, bk = saga.backoff_path(run_one, bk, tol_f, account)
         return best
 
     def run_path(x_fit, xc_fit, state0, li, hi, gmul, salt, pf_fit, box_fit):
@@ -279,6 +265,12 @@ def screened_path(
             w_full = w_grp[-1]
             intercept = b_grp[-1]
 
+        if in_full_tail:  # past the switch: full-layout chunks, no scores pass
+            hi = tail_end(li)
+            fit_group_full(p)
+            li = hi
+            continue
+
         scores = gradient_scores(w_dev, b_dev)
 
         # the union of the per-lambda sequential strong rules over the
@@ -296,8 +288,8 @@ def screened_path(
 
         K_limit = max(256, int(subset_mem_budget // (16 * n_pad)))
         if active.sum() > full_fallback_frac * p or _bucket(max(int(active.sum()), 1)) > K_limit:
-            if auto_full_tail:  # the rest of the path in one full-layout call
-                full_tail_from, hi = li, nl
+            if auto_full_tail:  # the rest of the path on the full layout
+                full_tail_from, in_full_tail, hi = li, True, tail_end(li)
             fit_group_full(int(active.sum()))
             li = hi
             continue
@@ -314,7 +306,7 @@ def screened_path(
                 # the expansion outgrew the subset budget: the group
                 # finishes on the full native layout
                 if auto_full_tail:
-                    full_tail_from, hi = li, nl
+                    full_tail_from, in_full_tail, hi = li, True, tail_end(li)
                 fit_group_full(len(idx))
                 went_full = True
                 break

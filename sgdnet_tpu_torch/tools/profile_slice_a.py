@@ -24,16 +24,11 @@ import warnings
 import torch
 
 
-def _device_us(event) -> float:
-    """A key average's own device time (the attribute's name changed
-    between torch releases)."""
-    return getattr(event, "self_device_time_total", 0.0) or getattr(event, "self_cuda_time_total", 0.0)
-
-
 def run(device=None, reps: int = 3, nlambda: int = 100) -> dict:
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.solver import epoch_kernel as ek
     from sgdnet_tpu_torch.utils.device import describe, resolve_device, sync
+    from sgdnet_tpu_torch.utils.profiling import device_kernels, self_device_us
 
     dev = resolve_device(device)
     x, y = st.load_abalone()
@@ -70,11 +65,11 @@ def run(device=None, reps: int = 3, nlambda: int = 100) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fit()
         sync(dev)
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    out["device_s"] = sum(_device_us(e) for e in kern) / 1e6
+    kern = device_kernels(prof)
+    out["device_s"] = sum(self_device_us(e) for e in kern) / 1e6
     out["busy_share"] = out["device_s"] / out["wall_s"]
-    out["top"] = [{"kernel": e.key[:60], "calls": e.count, "device_ms": _device_us(e) / 1e3}
-                  for e in sorted(kern, key=_device_us, reverse=True)[:5]]
+    out["top"] = [{"kernel": e.key[:60], "calls": e.count, "device_ms": self_device_us(e) / 1e3}
+                  for e in sorted(kern, key=self_device_us, reverse=True)[:5]]
     return out
 
 

@@ -143,7 +143,7 @@ def k3_times(bt, dev, seed: int) -> dict:
     """K3 on the tail's largest block at k = 1: ms a call through the checked
     wrapper and, where there is one, the bound launcher; device ms."""
     from sgdnet_tpu_torch.solver import tail_kernel as tk
-    from sgdnet_tpu_torch.utils.device import kernel_device_ms
+    from sgdnet_tpu_torch.utils.profiling import kernel_device_ms
 
     blk = int(torch.argmax(bt.counts))
     rng = np.random.default_rng(seed)

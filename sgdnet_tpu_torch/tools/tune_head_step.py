@@ -22,7 +22,7 @@ import json
 import torch
 
 from sgdnet_tpu_torch.solver import head_kernel as hk
-from sgdnet_tpu_torch.utils.device import kernel_device_ms
+from sgdnet_tpu_torch.utils.profiling import kernel_device_ms
 
 
 def _time(fn, reps: int = 20) -> float:

@@ -45,34 +45,3 @@ def describe(dev: torch.device) -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.CalledProcessError, IndexError):
         return f"{torch.cuda.get_device_name(dev)}, power limit not read"
-
-
-def self_device_us(event) -> float:
-    """A torch.profiler key average's own device time in microseconds
-    (the attribute's name changed between torch releases)."""
-    return getattr(event, "self_device_time_total", 0.0) or getattr(event, "self_cuda_time_total", 0.0)
-
-
-def kernel_device_ms(fn, reps: int, names) -> float | None:
-    """Device time per call of fn, whose wrapper launches each kernel named
-    in `names` once: torch.profiler over `reps` calls after a warm-up, each
-    kernel's device time per recorded launch, summed over the kernels.  Per
-    recorded launch, not over `reps`: a profile can keep fewer kernel
-    records than launches, and their sum over `reps` then reads below the
-    kernel's bytes bound.  A profile now and then keeps no record of a
-    kernel that ran: it is taken again, three times at most.  None when
-    none of them saw device time for the kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-                and self_device_us(e) > 0 and any(nm in e.key for nm in names)]
-        if kern:
-            return sum(self_device_us(e) / e.count for e in kern) / 1e3
-    return None
