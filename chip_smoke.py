@@ -55,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
-     products are torch), held the same way on the first 2 lambdas;
+     products are torch), on the first 3 lambdas of its 10-lambda path,
+     held the same way on the first 2 lambdas;
  11. P1 (the whole-epoch prototype probe, on K1's design) against its twin
      over 2 epochs at the probe's size (N 4224, P 128, B 32), identical
      bits over two runs, and K1 at P1's shape (the same data, starts, gamma,
@@ -71,12 +72,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      tools.bench_dma_streams);
  13. slice E: slice D's data and settings with hybrid_max_head="auto", the
      head width the port's layout planner picks from the card's constants
-     (K3 + K4 on the tail it leaves), held the same way on the first 2
-     lambdas, with the plan's predicted epoch beside the measured one; then
-     the same fit made afresh on the first 2 lambdas at the plan's width,
-     half and twice it, and the plan's width again, each width's measured
-     epoch beside the cost model's, which says whether the plan's width is
-     the fastest of the three;
+     (K3 + K4 on the tail it leaves), on the first 3 lambdas of its
+     10-lambda path, held the same way on the first 2 lambdas, with the
+     plan's predicted epoch beside the measured one; then the same fit
+     made afresh on the path's first lambda at the plan's width, half and
+     twice it, each width's measured epoch beside the cost model's, which
+     says whether the plan's width is the fastest of the three;
  14. cross-validation on abalone (slice A's fit, 3 folds, the full path,
      thresh 1e-6): serial `cv_fit` (a fit a fold) and `parallel=True` (the
      folds as weight masks over one design), both through K1, every fit
@@ -136,12 +137,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and native/_sgdnet_native.so untouched; (e) `utils.profiling.trace`
      around an abalone fit through K1, whose Chrome trace names
      saga_epochs_kernel once a launch, and `time_fn` of a K1 epoch beside
-     phase 4's CUDA-event time.
+     phase 4's CUDA-event time;
+ 19. the bench leg (sgdnet_tpu_torch/tools, on phase 7's data): (a)
+     bench.py's three sparse configs at full width through the bench's
+     `build_hybrid_device` and `run_epochs` (int8 D 32768 and 24576,
+     refresh 8; bf16 D 16384 through K2, refresh 4; B 8192): every block
+     of each layout's BlockCOO tail through K3 / K4 against their twins as
+     in phase 7, K2 against its twin on the bf16 layout's own head, one
+     epoch through the kernels against one on plain ops from the same
+     state and order (w, intercept and g_sum within 1e-3 x scale), then
+     `bench_sparse_epoch`'s best of 3 (nnz/s, ms an epoch, K2 / K3 / K4
+     launches an epoch: 13 each where the config runs the kernel, peak
+     memory) and the bench's metric line; (b) the dense secondaries
+     (65536 x 784 k 10 on slice B's data, 131072 x 8192 k 64 with TF32
+     and without; TF32 off again afterwards); (c) `validate_bf16` at n
+     20000 and 8 epochs, bf16 and int8 against f32 (objective 1e-4
+     relative, coefficients 1e-2 x scale); (d) `bench_path_e2e` quick (n
+     20000, D 16384, 10 lambdas) cold, warm and screened, the screened
+     path within 1e-3 relative of the full one by each lambda's penalized
+     objective (its coefficient gap and the JAX tool's 2e-3 x scale
+     verdict printed beside it).
 Each path (slices A-E, the three probe entry points, the CV calls, the
-screened fits, the meshed fits, in each rank, and phase 18's) runs with
-the launch counts set to 0 just before it and read just after.  Then a JSON
-line with every number, one JSON line of the kernels, the card's name and
-power limit, and last {"ok": true, "device": {...}}.  The script needs
+screened fits, the meshed fits, in each rank, phase 18's and phase 19's)
+runs with the launch counts set to 0 just before it and read just after.
+Then a JSON line with every number, one JSON line of the kernels, the
+card's name and power limit, and last {"ok": true, "device": {...}}.  The script needs
 the repository checkout and a CUDA device; it has no CPU path.
 """
 
@@ -943,6 +963,11 @@ def _objective(f, x, y, sd):
     return loss + f.lambda_ * np.abs(f.beta[:, 0, :] * sd[None, :]).sum(axis=1)
 
 
+#: slices D's and E's depth here: the first 3 lambdas of their 10-lambda
+#: path (the same points, lambda_max down to 0.05^(2/9) lambda_max)
+FIRST_THREE = dict(nlambda=3, lambda_min_ratio=0.05 ** (2 / 9))
+
+
 def run_sparse_slice(csr, y, dev, seed, kw):
     """The slice's fit: (fit, wall, peak device memory, the step it built)."""
     import sgdnet_tpu_torch as st
@@ -959,15 +984,15 @@ def run_sparse_slice(csr, y, dev, seed, kw):
 
 def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
     """Where a short fit of the slice (2 lambdas, 4 epochs an attempt)
-    spends the device's time: torch.profiler over the whole fit() after a
-    warm-up fit (one lambda, one epoch); the busy share is the kernels' device time over the fit's
-    wall, and the top kernels by device time with their calls."""
+    spends the device's time: torch.profiler over the whole fit(), warmed
+    up by the slice's own fits that ran just before it in this process;
+    the busy share is the kernels' device time over the fit's wall, and
+    the top kernels by device time with their calls."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.utils.profiling import device_kernels, self_device_us as dev_us
     from torch.profiler import ProfilerActivity, profile
 
     short = dict(kw, nlambda=2, maxit=4)
-    st.fit(csr, y, device=dev, seed=seed, **dict(kw, nlambda=1, maxit=1))  # the warm-up: one epoch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1247,9 +1272,9 @@ def model_epoch_ms(csr, width: int, kw) -> float:
 def planner_neighbours(csr, y, dev, seed, plan, lambdas, card) -> list:
     """Slice E through the same kernels at the plan's width, half of it
     (rounded up to 128 columns) and twice it, coverage 1.0, each fit made
-    fresh on `lambdas` (the first lambdas of slice E's path) in one
-    sequence that times the plan's width first and last: each width's
-    measured ms an epoch beside the cost model's.  The model is checked
+    fresh on `lambdas` (the first lambdas of slice E's path), the plan's
+    width first: each width's measured ms an epoch beside the cost
+    model's.  The model is checked
     against the plan's own prediction at the plan's width first."""
     from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_E
 
@@ -1259,7 +1284,7 @@ def planner_neighbours(csr, y, dev, seed, plan, lambdas, card) -> list:
           f"the cost model here ({model_d} ms) is not the planner's ({plan['head_ms'] + plan['tail_ms']} ms)")
     rows = []
     kw = {k: v for k, v in SLICE_E.items() if k not in ("nlambda", "lambda_min_ratio")}
-    for width in (d, -(-(d // 2) // 128) * 128, 2 * d, d):
+    for width in (d, -(-(d // 2) // 128) * 128, 2 * d):
         f, _, _, _ = run_sparse_slice(csr, y, dev, seed, dict(kw, lambda_path=lambdas, hybrid_max_head=width,
                                                               hybrid_coverage=1.0))
         check(f.stats["layout_plan"] is None and f.stats["layout"]["head_width"] == width
@@ -2184,6 +2209,159 @@ def phase_trace(k1_epoch, k1, dev, card, launches) -> dict:
             "cuda_events_epoch_ms": k1["ms"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the bench leg (tools/bench.py and its three harnesses)
+# ---------------------------------------------------------------------------
+
+
+def _bench_epoch_check(x, y_sp, kw, dev, seed) -> float:
+    """One epoch of the config's step through the kernels and one on plain
+    ops (`use_pallas=False, use_tail_kernel=False`), from the same zero
+    state and block order: the worst of max|dw| / max|w|, |db| / max(|b|,
+    1e-3) and max|dg_sum| / max|g_sum|; fails beyond 1e-3."""
+    from sgdnet_tpu_torch.solver import saga
+    from sgdnet_tpu_torch.tools import bench
+
+    B, n, n_pad = kw["batch_size"], len(y_sp), x.shape[0]
+    yd = torch.zeros((n_pad, 1), device=dev)
+    yd[:n, 0] = torch.as_tensor(np.asarray(y_sp, np.float32), device=dev)
+    wts = (torch.arange(n_pad, device=dev) < n).to(torch.float32)
+    order = saga.default_order_fn(seed, n_pad // B)(0, 0, 0)
+    outs = []
+    for kernels in (True, False):
+        config = bench.solver_config(B, "block", kw["g_sum_refresh_every"], kw.get("use_pallas", False) and kernels,
+                                     use_tail_kernel=kernels)
+        state = saga.init_state(n_pad, x.shape[1], 1, torch.float32, dev)
+        with saga._fp32_matmul():
+            outs.append(bench.run_epochs(x, yd, wts, state, [order], config, n))
+    k, p = outs
+    rel = lambda a, b, floor=1e-30: float((a - b).abs().max()) / max(float(b.abs().max()), floor)  # noqa: E731
+    worst = max(rel(k.w, p.w), rel(k.intercept, p.intercept, 1e-3), rel(k.g_sum, p.g_sum))
+    check(np.isfinite(worst) and float(p.w.abs().max()) > 0, "the bench epoch gave a zero or non-finite w")
+    return worst
+
+
+def _k2_on_head(hk, head, rng, dev) -> float:
+    """K2 against its twin on block 0 of a layout's own bf16 head (binomial,
+    k 1): the larger of max|dg| and max|dcorr| / max(max|corr|, 1); fails
+    beyond g 3e-2, corr 2e-2 (phase 8's bounds)."""
+    B, D = 8192, head.shape[1]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = (head, 0, t(rng.standard_normal((1, D)) / np.sqrt(D)), t(0.1 * rng.standard_normal((B, 1))),
+            t(rng.random((B, 1)) < 0.5), t(0.1 * rng.standard_normal((B, 1))), t(rng.random(B) < 0.9), "binomial")
+    g, corr = hk.fused_head_step_at(*args)
+    g_ref, corr_ref = hk.fused_head_step_reference(*args)
+    torch.cuda.synchronize()
+    eg = float((g - g_ref).abs().max())
+    ec = float((corr - corr_ref).abs().max()) / max(float(corr_ref.abs().max()), 1.0)
+    check(eg <= 3e-2 and ec <= 2e-2, f"K2 disagrees with its twin on the bench's bf16 head: dg {eg}, dcorr {ec}")
+    return max(eg, ec)
+
+
+def phase_bench(csr, y_sp, rng, dev, seed, card, launches) -> dict:
+    """Phase 19: (a) bench.py's three sparse configs through the bench's
+    builder and `run_epochs` (each layout's K3 / K4 blocks and, on the bf16
+    head, K2 held to their twins; one epoch through the kernels against one
+    on plain ops; the timed best of 3), (b) the dense secondaries, (c)
+    `validate_bf16` at n 20000 and 8 epochs, (d) `bench_path_e2e` quick at D
+    16384 on 10 lambdas.  Each path runs with the launch counts set to 0
+    just before it."""
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools import bench, bench_path_e2e, validate_bf16
+
+    out = {"configs": [], "k2_max_abs_err": 0.0, "tail_max_abs_err": 0.0}
+    t_phase = time.perf_counter()
+
+    def since() -> str:
+        return f"[{time.perf_counter() - t_phase:.1f} s into phase 19]"
+
+    for i, kw in enumerate(bench.SPARSE_CONFIGS):
+        B = kw["batch_size"]
+        n_pad = -(-csr.shape[0] // B) * B
+        t0 = time.perf_counter()
+        x, _ = bench.build_hybrid_device(csr, n_pad, max_head=kw["max_head"], coverage=kw["coverage"],
+                                         head_dtype=kw["head_dtype"], batch_size=B, device=dev)
+        build_s = time.perf_counter() - t0
+        for blk in range(x.blk_tail.n_blocks):
+            _, err = _tail_block_check(tk, x.blk_tail, blk, rng, dev, f"bench config {i + 1}")
+            out["tail_max_abs_err"] = max(out["tail_max_abs_err"], err)
+        if kw.get("use_pallas"):
+            out["k2_max_abs_err"] = max(out["k2_max_abs_err"], _k2_on_head(hk, x.head, rng, dev))
+        worst = _bench_epoch_check(x, y_sp, kw, dev, seed)
+        check(worst <= 1e-3, f"bench config {i + 1}: the kernels' epoch is {worst:.3e} from the plain epoch")
+        _reset_launches()
+        r = bench.bench_sparse_epoch(**kw, data=(csr, y_sp), x_prebuilt=x, device=dev, seed=seed)
+        launches[f"bench_{i + 1}"] = _launches()
+        x = None
+        torch.cuda.empty_cache()
+        T = n_pad // B
+        want_k2 = T if kw.get("use_pallas") else 0
+        check(r["k2_per_epoch"] == want_k2 and r["k3_per_epoch"] == T and r["k4_per_epoch"] == T,
+              f"bench config {i + 1}: launches an epoch K2 {r['k2_per_epoch']} K3 {r['k3_per_epoch']} K4 "
+              f"{r['k4_per_epoch']}, expected {want_k2}, {T}, {T}")
+        print(f"  bench config {i + 1} ({kw['head_dtype']} D {r['head_width']}, coverage {kw['coverage']}, refresh "
+              f"{kw['g_sum_refresh_every']}, {kw['epochs']} epochs a run): {r['nnz_per_s']:.4e} nnz/s (bench.py's "
+              f"count; {r['true_nnz_per_s']:.4e} of the {r['true_nnz']} true nonzeros), {r['ms_per_epoch']:.3f} ms an "
+              f"epoch, launches an epoch K2 {r['k2_per_epoch']:g} K3 {r['k3_per_epoch']:g} K4 "
+              f"{r['k4_per_epoch']:g}, peak device memory {bench._gib(r['peak_bytes'])}; layout built in "
+              f"{build_s:.2f} s; one epoch through the kernels vs plain ops: {worst:.3e} (bound 1e-3) [{card}] "
+              f"{since()}")
+        out["configs"].append({**r, "build_s": build_s, "epoch_vs_plain": worst})
+    name, power = bench.card_of(dev)
+    best = max(c["nnz_per_s"] for c in out["configs"])
+    line = {"metric": bench.METRIC, "value": best, "card": name, "power_limit_w": power}
+    print(f"  the bench's line: {json.dumps(line)}")
+
+    _reset_launches()
+    dense = {"65536x784_k10": bench.bench_dense_multinomial(data=_multinomial_data(seed), device=dev, seed=seed)}
+    for kw in bench.DENSE_CONFIGS[:2]:
+        dense[kw["label"]] = bench.bench_dense_multinomial(**kw, device=dev, seed=seed)
+    launches["dense"] = _launches()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is still on after the dense bench")
+    check(all(d["finite"] for d in dense.values()) and launches["dense"]["K2"] == 0,
+          f"the dense bench gave a non-finite w or launched K2: {launches['dense']}")
+    for label, d in dense.items():
+        print(f"  dense {label} ({d['matmul_precision']}): {d['samples_per_s']:.4e} samples/s, "
+              f"{d['tflop_per_s']:.3f} TFLOP/s, {d['seconds']:.4f} s for {d['epochs']} epochs [{card}] {since()}")
+    out["dense"] = dense
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    val = validate_bf16.validate(["bfloat16", "int8"], bench.make_sparse_binomial(n=20_000, seed=seed), 8, dev, seed)
+    launches["validate"] = _launches()
+    print(f"  validate_bf16 (n 20000, 8 epochs, {time.perf_counter() - t0:.2f} s): bf16 objective "
+          f"{val['bfloat16']['objective_rel_diff']:.3e}, coefficients {val['bfloat16']['coef_rel_diff']:.3e}; int8 "
+          f"{val['int8']['objective_rel_diff']:.3e}, {val['int8']['coef_rel_diff']:.3e} (bounds 1e-4, 1e-2 x scale); "
+          f"launches {launches['validate']} {since()}")
+    check(val["bfloat16"]["passed"] and val["int8"]["passed"], "a reduced head missed validate_bf16's bounds")
+    check(launches["validate"]["K3"] > 0 and launches["validate"]["K4"] > 0, "validate_bf16 ran no K3 / K4")
+    out["validate"] = val
+
+    data, y = bench.make_sparse_binomial(n=20_000, seed=3)
+    xs = bench._to_scipy(data)
+    _reset_launches()
+    e2e = bench_path_e2e.run_one(xs, y.ravel(), xs.nnz, 16384, screen_modes=(True,), nlambda=10, device=dev)
+    launches["e2e"] = _launches()
+    check(e2e["tail_kernel"] is True and launches["e2e"]["K3"] > 0 and launches["e2e"]["K4"] > 0,
+          f"bench_path_e2e ran no K3 / K4: {launches['e2e']}")
+    # the screened path against the full one by each lambda's penalized
+    # objective, within the solver's tolerance (thresh 1e-3), the tool's
+    # first verdict.  At thresh 1e-3 the coefficients of this workload's
+    # one-row columns wander along flat directions, and the reference
+    # records its own screened and full paths 4.4e-3 x scale and more apart
+    # (RESULTS.md:47-54, 170-173)
+    print(f"  bench_path_e2e quick (n 20000, D 16384, 10 lambdas): cold {e2e['t_full']:.3f} s ({e2e['ep_full']} "
+          f"epochs), warm {e2e['t_warm']:.3f} s ({e2e['ep_warm']} epochs), screened {e2e['t_scr']:.3f} s "
+          f"({e2e['ep_scr']} epochs); screened vs full: objective {e2e['scr_objective_rel']:.3e} relative (bound "
+          f"1e-3), coefficients {e2e['scr_diff']:.3e} x scale (the JAX tool's contract 2e-3: "
+          f"{'PASS' if e2e['scr_coef_pass'] else 'FAIL'}); launches {launches['e2e']} [{card}] {since()}")
+    check(e2e["finite"] and e2e["scr_objective_pass"],
+          f"the screened path's objective is {e2e['scr_objective_rel']:.3e} from the full path's")
+    out["e2e"] = e2e
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
@@ -2259,11 +2437,12 @@ def main(argv=None) -> int:
     lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
     fit_c = step_c = None
     phase("phase 10: slice D")
+    kw_d = {**SLICE_D, **FIRST_THREE}
     _reset_launches()
-    fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_D)
+    fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, kw_d)
     launches["D"] = _launches()
     slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], step_d, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_D, card, plain_lambdas=2)
+                                 kw_d, card, plain_lambdas=2)
     fit_d = step_d = None
     torch.cuda.empty_cache()
 
@@ -2275,15 +2454,17 @@ def main(argv=None) -> int:
     probes = run_probe_paths(dev, args.seed, launches)
 
     phase("phase 13: slice E (the layout planner)")
+    kw_e = {**SLICE_E, **FIRST_THREE}
     _reset_launches()
-    fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, SLICE_E)
+    fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, kw_e)
     launches["E"] = _launches()
     slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
-                                 SLICE_E, card, plain_lambdas=2)
+                                 kw_e, card, plain_lambdas=2)
     step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
-    # the widths on the first 2 lambdas of the path: ms an epoch is what they compare
-    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], fit_e.lambda_[:2], card)
+    # the widths on the path's first lambda (its maxit of epochs): ms an
+    # epoch is what they compare
+    slice_e["widths"] = planner_neighbours(csr, y_sp, dev, args.seed, slice_e["plan"], fit_e.lambda_[:1], card)
     fit_e = None
     torch.cuda.empty_cache()
 
@@ -2324,20 +2505,28 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], libsvm_c["tail_max_abs_err"])
     phase("phase 18 (e): trace() around an abalone fit through K1; time_fn of a K1 epoch")
     trace_a = phase_trace(k1_epoch, k1, dev, card, launches)
+    torch.cuda.empty_cache()
+    phase("phase 19: the bench leg (tools/bench.py's configs, its dense secondaries, validate_bf16, "
+          "bench_path_e2e), each path with the launch counts set to 0 just before it")
+    bench_leg = phase_bench(csr, y_sp, rng, dev, args.seed, card, launches)
+    k2w["max_abs_err"] = max(k2w["max_abs_err"], bench_leg["k2_max_abs_err"])
+    for k in (k3, k4):
+        k["max_abs_err"] = max(k["max_abs_err"], bench_leg["tail_max_abs_err"])
     phase("every phase passed")
     print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
                       "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
                       "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening,
                       "data_parallel": {"dp_c1": dp1, **dp2},
                       "surface": {"protocol": protocol, "chunk_a": chunk_a, "ckpt_a": ckpt_a, "libsvm_c": libsvm_c,
-                                  "trace_a": trace_a}}))
+                                  "trace_a": trace_a}, "bench_leg": bench_leg}))
 
     def by_path(key, paths):
         return {"launches": sum(launches[p][key] for p in paths),
                 "launches_by_path": {p: launches[p][key] for p in paths}}
 
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
-    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2", "libsvm_c"]
+    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2", "libsvm_c",
+                  "bench_1", "bench_2", "bench_3", "validate", "e2e"]
     probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
         {"name": "saga_epochs (K1), one abalone epoch", "route": "cuda",
@@ -2350,7 +2539,7 @@ def main(argv=None) -> int:
          **by_path("K2", "B"), **k2},
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
-         **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2", "libsvm_c"]), **k2w},
+         **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2", "libsvm_c", "bench_3"]), **k2w},
         {"name": "fused_head_step_at (K2), f32 screened subsets, D=512 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", ["screen_true_c", "screen_auto_c", "screen_true_wide", "screen_auto_wide"]), **k2s},

@@ -18,7 +18,7 @@ multi-GB head is ever made.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -395,6 +395,12 @@ class BlockCOO:
         t = lambda a: torch.as_tensor(np.array(a), device=dev)  # noqa: E731
         return cls(t(rows), t(cols), t(vals), batch, n_cols, t(counts), t(row_ptr), t(rows_by_col),
                    t(vals_by_col), t(col_seg), t(heavy_cols), max_heavy)
+
+    def to(self, device) -> "BlockCOO":
+        """The same packing on `device` (its address table rebuilt there)."""
+        moved = {f.name: getattr(self, f.name).to(device) for f in fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return replace(self, **moved)
 
     def scale_columns(self, scale: torch.Tensor) -> "BlockCOO":
         """The same packing with every value divided by its column's scale,

@@ -5,12 +5,12 @@ launches and host time a step, and K3's time on the fit's largest block.
     python -m sgdnet_tpu_torch.tools.profile_sparse_slices [--device cuda|cpu] [--seed 0]
         [--slices C,D,E] [--n 100000] [--p 47000] [--nlambda 10] [--maxit 100]
 
-The data is a copy of bench.py's `make_sparse_binomial` (n 100000, p
-47000, 76 nonzeros a row, Zipf columns); the slices are bench.py's sparse
-configs (C: a bf16 16384-wide head through K2 + K3 + K4; D: an int8
-32768-wide head through K3 + K4; E: slice D with the layout planner's
-head width), cut to 10 lambdas to 0.05 lambda_max and maxit 100.  For
-each slice one fit gives the fit and path walls, the epochs and the K3 /
+The data is the bench's `make_sparse_binomial` (tools/bench.py, a copy
+of bench.py's: n 100000, p 47000, 76 nonzeros a row, Zipf columns); the
+slices are bench.py's sparse configs (C: a bf16 16384-wide head through
+K2 + K3 + K4; D: an int8 32768-wide head through K3 + K4; E: slice D
+with the layout planner's head width), cut to 10 lambdas to 0.05
+lambda_max and maxit 100.  For each slice one fit gives the fit and path walls, the epochs and the K3 /
 K4 launches; the step it built, captured, then runs one epoch of its
 blocks from a zero state, once to warm up, once on the host clock (ms a
 step, ending in a synchronize) and once under torch.profiler, which
@@ -45,22 +45,14 @@ SLICES = {"C": SLICE_C, "D": SLICE_D, "E": SLICE_E}
 
 
 def make_sparse_binomial(n=100_000, p=47_000, nnz_per_row=76, seed=0):
-    """rcv1-scale synthetic (bench.py:142-165): fixed nonzeros per row, Zipf
-    column use (rank + 10)^-1.15, 5% true features; as a canonical scipy
-    CSR (duplicates summed) and y (n,)."""
-    import scipy.sparse as sp
+    """The bench's workload (tools/bench.py `make_sparse_binomial`, a copy of
+    bench.py:142-165) as a canonical scipy CSR (duplicates summed) and y (n,)."""
+    from sgdnet_tpu_torch.tools import bench
 
-    rng = np.random.default_rng(seed)
-    weights = (np.arange(p) + 10.0) ** -1.15
-    cdf = np.cumsum(weights) / weights.sum()
-    cols = np.searchsorted(cdf, rng.random((n, nnz_per_row))).astype(np.int32).clip(0, p - 1)
-    vals = rng.normal(size=(n, nnz_per_row)).astype(np.float32)
-    w_true = rng.normal(size=p) * (rng.random(p) < 0.05) * 3.0
-    lp = (vals * w_true[cols]).sum(axis=1)
-    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-lp))).astype(np.float32)
-    x = sp.csr_matrix((vals.ravel(), cols.ravel(), np.arange(0, n * nnz_per_row + 1, nnz_per_row)), shape=(n, p))
+    data, y = bench.make_sparse_binomial(n, p, nnz_per_row, seed)
+    x = bench._to_scipy(data)
     x.sum_duplicates()
-    return x, y
+    return x, y.ravel()
 
 
 def cuda_ms(fn, reps: int) -> float:

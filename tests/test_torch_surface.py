@@ -4,8 +4,9 @@ imports nothing of JAX, and its profiling hooks (utils/profiling.py).
   * `sgdnet_tpu_torch.__all__` holds every name of `sgdnet_tpu.__all__`,
     each a counterpart of the same kind (class or function);
   * no module of sgdnet_tpu_torch/ and nothing in chip_smoke.py imports
-    `jax`, `jaxlib` or `sgdnet_tpu`, at any depth of the file (read with
-    `ast`, so an import inside a function counts);
+    `jax`, `jaxlib`, `sgdnet_tpu`, or the JAX side's `bench` or `tools`, at
+    any depth of the file (read with `ast`, so an import inside a function
+    counts);
   * `trace(log_dir)` writes a Chrome trace that names the ops it saw, and
     `time_fn` returns seconds a call, on the CPU here.
 """
@@ -26,7 +27,9 @@ from sgdnet_tpu_torch.utils import profiling
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "sgdnet_tpu")
+#: the JAX package, and the JAX side's bench.py and tools/ (the port keeps
+#: its own copies in sgdnet_tpu_torch/tools)
+FORBIDDEN = ("jax", "jaxlib", "sgdnet_tpu", "bench", "tools")
 
 
 def _port_files():
@@ -74,6 +77,15 @@ def test_the_guard_sees_a_nested_import(tmp_path):
                  "    import sgdnet_tpu_torch\n")
     hits = _forbidden_imports(str(p))
     assert [h.split()[-1] for h in hits] == ["jax", "sgdnet_tpu.api.fit"]
+
+
+def test_the_guard_sees_bench_and_tools(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("def f():\n    import bench\n    from tools.bench_layout_sweep import tail_entries_for\n"
+                 "    from bench import log\n    from sgdnet_tpu_torch.tools import bench\n"
+                 "    import sgdnet_tpu_torch.tools.bench\n")
+    hits = _forbidden_imports(str(p))
+    assert [h.split()[-1] for h in hits] == ["bench", "tools.bench_layout_sweep", "bench"]
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
