@@ -66,8 +66,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      probe's entry point (sgdnet_tpu_torch.tools.bench_epoch_kernel, 200
      epochs);
  12. P2 and P3 (the head-stream probes) against their twin on a seeded
-     106496 x 16384 bf16 head, per tile height and ring config, with the
-     full-head torch.sum ceiling; then their entry points
+     106496 x 16384 bf16 head, per tile height and ring config, each with
+     identical bits over two runs; P3's plan a ring (strip width, stages,
+     grid, CTAs an SM, rounds, partial rows), its share of the bound and
+     the library call, P3 on the first block too, and its tensor-map
+     encode time; the full-head torch.sum ceiling; then their entry points
      (tools.bench_head_dma, which also streams K2, and
      tools.bench_dma_streams);
  13. slice E: slice D's data and settings with hybrid_max_head="auto", the
@@ -180,13 +183,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: the times this script measured on an NVIDIA H100 80GB HBM3 at 700.00 W
-#: before K2, K4 and K3 were redesigned (K2: a 32-row tile per CTA, read
-#: twice; K4: one thread per column; K3: one thread a (row, class), checks
-#: and the stream read on every call; P1: PR 1's one-CTA K1 design, operands
-#: from L2): ms a call and ms on the device (P1: and ns a step).  Printed
+#: before K2, K4, K3, P1 and P3 were redesigned (K2: a 32-row tile per CTA,
+#: read twice; K4: one thread per column; K3: one thread a (row, class),
+#: checks and the stream read on every call; P1: K1's first one-CTA design,
+#: operands from L2; P3: a cp.async ring, a CTA a strip, its best ring 2 x
+#: 512): ms a call and ms on the device (P1: and ns a step).  Printed
 #: beside the new times only: the `kernels` line holds what this run measured
 EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
-           "k4_probe_shape": (0.0942, 0.0307), "k3": (0.0316, 0.0034), "p1": (0.4422, 0.4532, 3433)}
+           "k4_probe_shape": (0.0942, 0.0307), "k3": (0.0316, 0.0034), "p1": (0.4422, 0.4532, 3433),
+           "p3": (0.0991, 0.0965)}
 #: the same card model and limit before K1 was redesigned (its earlier
 #: persistent 512-thread CTA an epoch, operands from L2, a second launch
 #: for the refresh): an abalone epoch in ms a call and ms on the device, µs
@@ -231,6 +236,10 @@ def device_ms(fn, reps: int, names) -> float | None:
 
 def _fmt(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def _pct(bound_ms: float, ms) -> str:
+    return "not measured" if ms is None else f"{100 * bound_ms / ms:.1f}%"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1161,7 +1170,7 @@ def _colsum_err(out, ref, head, start, B) -> float:
 
 def phase_p23(dev, seed):
     from sgdnet_tpu_torch.tools import probe_kernels as pk
-    from sgdnet_tpu_torch.tools.bench_dma_streams import CONFIGS
+    from sgdnet_tpu_torch.tools.bench_dma_streams import CONFIGS, plan_keys
     from sgdnet_tpu_torch.tools.bench_head_dma import seeded_head
 
     n_pad, D, B = 106496, 16384, 8192
@@ -1191,11 +1200,29 @@ def phase_p23(dev, seed):
                   lambda bt=bt: pk.block_colsum_reference(head, start, B, bt), ("colsum_tile", "sum_partials"),
                   {"bt": bt}) for bt in (256, 512, 1024)]
     check(all(r["bits_identical"] for r in p2), "P2 gave different bits in two runs")
-    p3 = [measure(f"P3 n_buf {nb} chunk {cr} (strip {pk.pipeline_strip_width(nb, cr, D)} columns)",
-                  lambda nb=nb, cr=cr: pk.block_colsum_pipelined(head, start, B, nb, cr),
-                  lambda cr=cr: pk.block_colsum_reference(head, start, B, cr), ("colsum_pipelined",),
-                  {"n_buf": nb, "chunk_rows": cr, "strip_width": pk.pipeline_strip_width(nb, cr, D)})
-          for nb, cr in CONFIGS]
+    p3 = []
+    for nb, cr in CONFIGS:
+        plan = pk.launch_plan(dev, nb, cr, D, B)
+        print(f"  P3 n_buf {nb} chunk {cr}: strips of {plan.width} columns ({plan.width * 2} bytes a row) x "
+              f"{plan.chunks} chunks = {plan.stages} stages of {cr * plan.width * 2} bytes ({plan.boxes} TMA box(es) "
+              f"each), dealt to {plan.grid} CTAs ({plan.ctas_per_sm} an SM on {plan.sms} SMs, {plan.smem} bytes "
+              f"of shared memory each): {plan.rounds} round(s) of whole strips, then "
+              f"{plan.strips - plan.rounds * plan.grid} strips left in contiguous runs; {plan.stages_per_cta[0]}-{plan.stages_per_cta[1]} stages a CTA, "
+              f"{plan.pieces} rows of partial sums")
+        p3.append(measure(f"P3 n_buf {nb} chunk {cr}",
+                          lambda nb=nb, cr=cr: pk.block_colsum_pipelined(head, start, B, nb, cr),
+                          lambda cr=cr: pk.block_colsum_reference(head, start, B, cr), ("colsum_pipelined",),
+                          {"n_buf": nb, "chunk_rows": cr, "plan": plan_keys(plan, True)}))
+        print(f"    {100 * b['bound_ms'] / p3[-1]['ms']:.1f}% of the bound a call, "
+              f"{_pct(b['bound_ms'], p3[-1]['device_ms'])} on the device; the library call {lib_ms:.4f} ms")
+    check(all(r["bits_identical"] for r in p3), "P3 gave different bits in two runs")
+    print(f"  P3's earlier design (a cp.async ring, a CTA a strip), best ring: {EARLIER['p3'][0]} / "
+          f"{EARLIER['p3'][1]} ms")
+    first = pk.block_colsum_pipelined(head, 0, B, *CONFIGS[0])  # the first block: the smallest offsets
+    check(_colsum_err(first, pk.block_colsum_reference(head, 0, B, CONFIGS[0][1]), head, 0, B) <= 1e-6,
+          "P3 disagrees with its twin on the first block")
+    encode_ns = pk.pipeline_encode_ns(head, *CONFIGS[0], B)
+    print(f"  P3's tensor-map encode on the host: {encode_ns:.0f} ns a call")
     ceil_ms = cuda_ms(lambda: torch.sum(head, dtype=torch.float32), 10)
     ceil = {"ms": ceil_ms, "gb_per_s": 2 * n_pad * D / ceil_ms / 1e6, **roofline(2 * n_pad * D + 4, n_pad * D,
                                                                                F32_FLOPS)}
@@ -1208,7 +1235,7 @@ def phase_p23(dev, seed):
         top = min(rows, key=lambda r: r["ms"])
         return {**top, "configs": rows}
 
-    return best(p2), best(p3), ceil
+    return best(p2), {**best(p3), "encode_ns": encode_ns}, ceil
 
 
 def run_probe_paths(dev, seed, launches):

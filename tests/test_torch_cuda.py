@@ -438,30 +438,53 @@ def _colsum_ok(out, ref, head, start, batch):
     assert bool(((out - ref).abs() <= 1e-6 * absum).all())
 
 
-@pytest.mark.parametrize("n_pad,D,batch", [(2048, 768, 256), (106496, 16384, 8192)])
+@pytest.mark.parametrize("n_pad,D,batch", [(2048, 768, 256), (2048, 1000, 256), (106496, 16384, 8192)])
 def test_block_colsum_kernels_match_twin(dev, n_pad, D, batch):
-    """P2 at each tile height (identical bits over two launches) and P3 at
-    each ring config, against the twin within 1e-6 x sum |x| per column."""
+    """P2 at each tile height and P3 at each ring config, at the first and
+    the last block, against the twin within 1e-6 x sum |x| per column, with
+    identical bits over two launches and one launch a call; at D 1000 P3's
+    last strip is partial."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     head = torch.randn((n_pad, D), generator=gen, dtype=torch.bfloat16, device=dev)
-    start = n_pad - batch  # the last block: the largest offsets
-    for bt in (32, 256, 1024):
-        if batch % bt:
-            continue
-        before = pk.block_colsum.launches
-        out = pk.block_colsum(head, start, batch, bt)
-        assert pk.block_colsum.launches == before + 1
-        assert torch.equal(out, pk.block_colsum(head, start, batch, bt))
-        _colsum_ok(out, pk.block_colsum_reference(head, start, batch, bt), head, start, batch)
-    for n_buf, chunk_rows in ((2, 512), (4, 256), (8, 128), (2, 64), (8, 32)):
-        if batch % chunk_rows:
-            continue
-        before = pk.block_colsum_pipelined.launches
-        out = pk.block_colsum_pipelined(head, start, batch, n_buf, chunk_rows)
-        assert pk.block_colsum_pipelined.launches == before + 1
-        _colsum_ok(out, pk.block_colsum_reference(head, start, batch, chunk_rows), head, start, batch)
+    for start in (0, n_pad - batch):  # the first block and the last: the largest offsets
+        for bt in (32, 256, 1024):
+            if batch % bt:
+                continue
+            before = pk.block_colsum.launches
+            out = pk.block_colsum(head, start, batch, bt)
+            assert pk.block_colsum.launches == before + 1
+            assert torch.equal(out, pk.block_colsum(head, start, batch, bt))
+            _colsum_ok(out, pk.block_colsum_reference(head, start, batch, bt), head, start, batch)
+        for n_buf, chunk_rows in ((2, 512), (4, 256), (4, 512), (8, 256), (8, 128), (2, 64), (8, 32)):
+            if batch % chunk_rows:
+                continue
+            plan = pk.launch_plan(dev, n_buf, chunk_rows, D, batch)
+            assert plan.grid == min(plan.sms * plan.ctas_per_sm, plan.stages)
+            if D == 1000:
+                assert D % plan.width != 0
+            before = pk.block_colsum_pipelined.launches
+            out = pk.block_colsum_pipelined(head, start, batch, n_buf, chunk_rows)
+            assert pk.block_colsum_pipelined.launches == before + 1
+            assert torch.equal(out, pk.block_colsum_pipelined(head, start, batch, n_buf, chunk_rows))
+            assert pk.block_colsum_pipelined.launches == before + 2
+            _colsum_ok(out, pk.block_colsum_reference(head, start, batch, chunk_rows), head, start, batch)
     torch.cuda.synchronize()
+
+
+def test_block_colsum_pipelined_refuses_what_it_does_not_take(dev):
+    """A CUDA head P3 does not take raises, and nothing launches: a ring
+    depth it is not built for, chunks that do not tile B, D off 16 bytes,
+    a head off 16 bytes."""
+    head = torch.zeros((512, 256), dtype=torch.bfloat16, device=dev)
+    shifted = torch.zeros(512 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:].view(512, 256)
+    narrow = torch.zeros((512, 100), dtype=torch.bfloat16, device=dev)
+    before = pk.block_colsum_pipelined.launches
+    for h, args in ((head, (0, 128, 3, 64)), (head, (0, 128, 8, 96)), (narrow, (0, 128, 2, 64)),
+                    (shifted, (0, 128, 2, 64))):
+        with pytest.raises(ValueError):
+            pk.block_colsum_pipelined(h, *args)
+    assert pk.block_colsum_pipelined.launches == before
 
 
 # ---------------------------------------------------------------------------

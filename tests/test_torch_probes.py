@@ -21,6 +21,7 @@
 import importlib.util
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -361,57 +362,172 @@ def _replay_p2(h, start, B, bt, ct=256):
     return out
 
 
-def _replay_p3(h, start, B, n_buf, chunk_rows, W, ct=256):
-    """csrc/probes.cu colsum_pipelined: CTA per W-column strip; chunk i lands
-    in ring slot i % n_buf and is refilled with chunk i + n_buf only after
-    it is read; thread (pair, group) sums rows group, group + groups, ...
-    of each chunk; the groups meet in order."""
+def _replay_p3(h, start, B, n_buf, chunk_rows, plan):
+    """csrc/probes.cu colsum_pipelined + colsum_pipelined_pieces at `plan`:
+    CTA g streams its stages (`pipeline_deal`) through its ring.  The
+    producer lands stage k in slot k % n_buf once its wait on the slot's
+    empty barrier passes (parity (k // n_buf & 1) ^ 1), the consumers' wait
+    on the full barrier (parity k // n_buf & 1) must pass on exactly that
+    stage, and the slot is refilled only after they release it.  Thread
+    (group, v) adds rows group, group + groups, ... of each stage to its 8
+    columns (columns past D land as zeros); where a piece ends the groups
+    meet in order into its partial row, and the second pass adds a strip's
+    rows in CTA order."""
     D = h.shape[1]
+    W, groups = plan.width, plan.groups
+    hp = np.zeros((h.shape[0], plan.strips * W), np.float32)
+    hp[:, :D] = h
+    part = np.full((plan.pieces, D), np.nan, np.float32)
+    for g in range(plan.grid):
+        deal = pk.pipeline_deal(plan, g)
+        full, empty, ring = [0] * n_buf, [0] * n_buf, [None] * n_buf  # phase completions, slot contents
+        kp = 0
+        acc = np.zeros((groups, W), np.float32)
+        for k, (s, c, row, ends) in enumerate(deal):
+            while kp < len(deal) and empty[kp % n_buf] % 2 != ((kp // n_buf) & 1) ^ 1:
+                assert ring[kp % n_buf] is None  # never over a stage not yet read
+                ring[kp % n_buf] = kp
+                full[kp % n_buf] += 1
+                kp += 1
+            slot = k % n_buf
+            assert full[slot] % 2 != (k // n_buf) & 1  # the consumers' wait passes ...
+            assert ring[slot] == k and full[slot] == k // n_buf + 1  # ... on this stage
+            stage = hp[start + c * chunk_rows : start + (c + 1) * chunk_rows, s * W : (s + 1) * W]
+            for q in range(-(-chunk_rows // groups)):
+                rows = np.arange(groups) + q * groups
+                ok = rows < chunk_rows
+                acc[ok] += stage[rows[ok]]
+            ring[slot] = None
+            empty[slot] += 1
+            if ends:
+                total = acc[0].copy()
+                for q in range(1, groups):
+                    total += acc[q]
+                cols = min(W, D - s * W)
+                part[row, s * W : s * W + cols] = total[:cols]
+                acc[:] = 0
+        assert kp == len(deal)
     out = np.zeros(D, np.float32)
-    pairs = W // 2
-    groups = ct // pairs
-    n_chunks = B // chunk_rows
-    for col0 in range(0, D, W):
-        ring = [None] * n_buf
-        for s in range(min(n_buf, n_chunks)):
-            ring[s] = s
-        acc = np.zeros((groups, pairs, 2), np.float32)
-        for i in range(n_chunks):
-            slot = i % n_buf
-            assert ring[slot] == i  # the chunk waited for is the one in its slot
-            rows = h[start + i * chunk_rows : start + (i + 1) * chunk_rows, col0 : col0 + W]
-            for g in range(groups):
-                for r in range(g, chunk_rows, groups):
-                    acc[g] += rows[r].reshape(pairs, 2)
-            if i + n_buf < n_chunks:
-                ring[slot] = i + n_buf
-        s = np.zeros((pairs, 2), np.float32)
-        for g in range(groups):
-            s += acc[g]
-        out[col0 : col0 + W] = s.reshape(-1)
+    left = (plan.strips - plan.rounds * plan.grid) * plan.chunks
+    for s in range(plan.strips):
+        cols = np.s_[s * W : min((s + 1) * W, D)]
+        u = (s - plan.rounds * plan.grid) * plan.chunks  # a leftover strip's first stage
+        n = 1 if u < 0 else pk.pipeline_cta_of(u + plan.chunks - 1, left, plan.grid) - pk.pipeline_cta_of(
+            u, left, plan.grid) + 1
+        acc = part[0, cols].copy()
+        for p in range(1, n):
+            acc += part[p, cols]
+        out[cols] = acc
+    assert np.isfinite(out).all()  # every column's pieces were written
     return out
 
 
-@pytest.mark.parametrize("n_buf,chunk_rows", [(2, 16), (4, 8), (8, 8)])
-def test_kernel_orders_match_twin(head, n_buf, chunk_rows):
-    ht = _as_torch(head)
+@pytest.mark.parametrize("n_buf,chunk_rows,d,sms", [(2, 16, 256, 3), (4, 8, 256, 5), (8, 8, 256, 2),
+                                                    (2, 16, 600, 5), (4, 32, 600, 2), (8, 64, 600, 2),
+                                                    (2, 16, 1000, 3), (4, 16, 1000, 2)])
+def test_kernel_orders_match_twin(head, n_buf, chunk_rows, d, sms):
+    """P3's order (the dealt stages, the ring's slots and parities, the row
+    groups, the pieces) and P2's give the twin's sums within 1e-6 x sum |x|
+    a column, at the first and the last block.  At D 600 and 1000 the last
+    strip is partial; grids of 2-5 CTAs give leftover strips alone (D 256,
+    600 at 5 CTAs), rounds and leftovers (600 at 2, 1000 at 3) and rounds
+    alone (1000 at 2)."""
+    if d == D:
+        ht = _as_torch(head)
+    else:
+        ht = torch.tensor(np.random.default_rng(d + n_buf).normal(size=(N_PAD, d)), dtype=torch.float32)
+        ht = ht.to(torch.bfloat16)
     h = ht.float().numpy()
-    start = B
-    ref = pk.block_colsum_reference(ht, start, B, chunk_rows).numpy()
-    W = pk.pipeline_strip_width(n_buf, chunk_rows, D)
-    _check_colsum(_replay_p3(h, start, B, n_buf, chunk_rows, W), ref, ht, start)
-    _check_colsum(_replay_p2(h, start, B, chunk_rows), ref, ht, start)
+    plan = pk.pipeline_plan(n_buf, chunk_rows, d, B, sms, 1)
+    assert plan.grid == min(sms, plan.stages) and (d % plan.width == 0) == (d == D)
+    for start in (0, N_PAD - B):
+        ref = pk.block_colsum_reference(ht, start, B, chunk_rows).numpy()
+        _check_colsum(_replay_p3(h, start, B, n_buf, chunk_rows, plan), ref, ht, start)
+        if d == D:
+            _check_colsum(_replay_p2(h, start, B, chunk_rows), ref, ht, start)
 
 
-def test_pipeline_strip_width():
-    # the TPU probe's configs at D = 16384: every one fits at some width
-    widths = {c: pk.pipeline_strip_width(*c, 16384) for c in bench_dma_streams.CONFIGS}
-    assert widths == {(2, 512): 64, (4, 256): 64, (4, 512): 32, (8, 256): 32, (8, 128): 64}
-    for (n_buf, chunk_rows), w in widths.items():
-        assert n_buf * chunk_rows * w * 2 + 256 * 8 <= pk.SMEM_LIMIT < n_buf * chunk_rows * 2 * w * 2 + 256 * 8
-    assert pk.pipeline_strip_width(2, 16, 256) == 256  # a strip no wider than D
-    assert pk.pipeline_strip_width(8, 2048, 16384) is None  # even 8 columns do not fit
-    assert pk.pipeline_strip_width(2, 16, 100) is None  # no power-of-two width >= 8 divides D
+def _cu_expression(begin, end):
+    src = open(os.path.join(ROOT, "sgdnet_tpu_torch", "csrc", "probes.cu")).read()
+    return " ".join(re.search(re.escape(begin) + r"(.*?)" + re.escape(end), src, re.S).group(1).split())
+
+
+def test_pipeline_plan_mirrors_the_cu():
+    """The .cu's shared-memory expression and the CTA its runs give a
+    leftover stage are the Python plan's (evaluated here, C's / on
+    non-negative ints as //)."""
+    smem = _cu_expression("/* P3-SMEM */", "/* END-P3-SMEM */")
+    cta_of = _cu_expression("/* P3-CTA-OF */", "/* END-P3-CTA-OF */").replace("/", "//")
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        v = dict(n_buf=int(rng.choice([2, 4, 8])), rows=int(rng.integers(1, 600)), W=16 * int(rng.integers(1, 17)),
+                 groups=int(rng.integers(1, 33)))
+        assert eval(smem, {}, dict(v)) == pk.pipeline_smem_bytes(**v)
+        RC = int(rng.integers(1, 20000))
+        G, u = int(rng.integers(1, min(RC, 1000) + 1)), int(rng.integers(0, RC))
+        g = eval(cta_of, {}, dict(u=u, RC=RC, G=G))
+        assert g == pk.pipeline_cta_of(u, RC, G) and RC * g // G <= u < RC * (g + 1) // G
+
+
+#: P3's strip width at the TPU probe's configs, D 16384: the widest multiple
+#: of 16 columns whose ring fits one CTA (a 1024-row ring 96 columns, 192
+#: bytes a row; a 2048-row ring 48 columns)
+PLAN_WIDTHS = {(2, 512): 96, (4, 256): 96, (4, 512): 48, (8, 256): 48, (8, 128): 96}
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n_buf,chunk_rows", list(bench_dma_streams.CONFIGS))
+def test_pipeline_plan(n_buf, chunk_rows, sms):
+    """At the probe's shape each TPU ring fits one CTA at the widest width,
+    one CTA on every SM (the SM count is the caller's: 132 on an H100 SXM,
+    114 on a PCIe card), every stage dealt once, within one of each other,
+    whole strips in lockstep rounds first, and the pieces as the .cu
+    launcher checks them."""
+    Dp, Bp = 16384, 8192
+    plan = pk.pipeline_plan(n_buf, chunk_rows, Dp, Bp, sms)
+    W = plan.width
+    assert W == PLAN_WIDTHS[(n_buf, chunk_rows)] and W % 16 == 0
+    assert plan.smem == pk.pipeline_smem_bytes(n_buf, chunk_rows, W, plan.groups) <= pk.SMEM_LIMIT
+    assert pk.pipeline_smem_bytes(n_buf, chunk_rows, W + 16, 256 // ((W + 16) // 8)) > pk.SMEM_LIMIT
+    assert plan.groups == 256 // (W // 8) and plan.box_rows * plan.boxes == chunk_rows and plan.box_rows <= 256
+    assert plan.strips == -(-Dp // W) and plan.chunks == Bp // chunk_rows
+    assert plan.ctas_per_sm == 1 and plan.grid == sms and plan.stages == plan.strips * plan.chunks
+    deals = [pk.pipeline_deal(plan, g) for g in range(sms)]
+    counts = [len(d) for d in deals]
+    assert max(counts) - min(counts) <= 1 and tuple(plan.stages_per_cta) == (min(counts), max(counts))
+    stages = sorted((s, c) for d in deals for s, c, _, _ in d)
+    assert stages == [(s, c) for s in range(plan.strips) for c in range(plan.chunks)]  # each stage once
+    # in a round every CTA streams a whole strip, the card one row band at a time
+    assert plan.rounds == plan.strips // sms >= 1
+    for i in range(plan.rounds * plan.chunks):
+        assert {d[i][1] for d in deals} == {i % plan.chunks}
+        assert sorted(d[i][0] for d in deals) == list(range(i // plan.chunks * sms, (i // plan.chunks + 1) * sms))
+    # a round's strip is one piece (row 0); a leftover strip one piece for each CTA it is dealt to, in CTA order
+    dealt = {}
+    for g, d in enumerate(deals):
+        for s, c, row, ends in d:
+            dealt.setdefault(s, []).append((g, row))
+            if s < plan.rounds * sms:
+                assert (row, ends) == (0, c == plan.chunks - 1)
+    ctas = {s: sorted({g for g, _ in v}) for s, v in dealt.items()}
+    assert all(row == ctas[s].index(g) for s, v in dealt.items() for g, row in v)
+    assert plan.pieces == max(len(v) for v in ctas.values())
+    assert pk.pipeline_plan(n_buf, chunk_rows, Dp, Bp, sms, 2).grid == 2 * sms  # a second CTA an SM, if it held
+
+
+@pytest.mark.parametrize("n_buf,chunk_rows,d,batch", [(3, 64, 256, 512), (2, 64, 100, 512), (2, 24, 256, 512),
+                                                      (2, 6, 256, 48), (2, 520, 256, 1040)])
+def test_pipeline_plan_refuses(n_buf, chunk_rows, d, batch):
+    """A ring depth the launcher is not built for, D off 16 bytes, chunks
+    that do not tile B, boxes off 128-byte boundaries, a chunk that splits
+    into no equal boxes of at most 256 rows."""
+    with pytest.raises(ValueError):
+        pk.pipeline_plan(n_buf, chunk_rows, d, batch, 132)
+
+
+def test_pipeline_plan_has_no_width_for_a_deep_tall_ring():
+    assert pk.pipeline_plan(8, 2048, 16384, 8192, 132) is None  # even 16 columns do not fit
+    assert pk.pipeline_plan(2, 16, 256, 64, 132).width == 256  # a strip no wider than D
 
 
 def test_wrappers_reject_what_they_do_not_take():
@@ -454,6 +570,11 @@ def test_entry_point_runs_on_the_cpu(tool, capsys):
         assert out["full_head_sum"]["gb_per_s"] > 0
         ran, skipped = out["p3"][:2], out["p3"][2]
         assert [r["strip_width"] for r in ran] == [64, 64] and all(r["ms_per_step"] > 0 for r in ran)
+        assert [(r["strips"], r["chunks"], r["boxes"]) for r in ran] == [(1, 4, 1), (1, 8, 1)]
+        assert all(r["smem_bytes"] <= pk.SMEM_LIMIT for r in ran)
+        # the grid is the card's: none on the CPU, where the twin runs
+        assert all(r[k] is None for r in ran for k in ("sms", "ctas_per_sm", "grid", "rounds", "stages_per_cta",
+                                                          "pieces"))
         assert skipped["n_buf"] == 8 and "skipped" in skipped
 
 
