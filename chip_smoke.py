@@ -6,14 +6,25 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
   2. build the hand-written kernels' four sources in csrc/ and report the
-     seconds;
+     seconds; the SASS of K2's streamed bf16 kernels holds HMMA (tensor
+     core) instructions (cuobjdump, beside nvcc, run meanwhile and read
+     after phase 3);
   3. K2 (fused head step) against its plain torch twin at the dense
      multinomial shape n_pad=65536, D=784, B=4096, f32 and bf16, on rows
      that are not a multiple of 16 bytes (D 785, 786) with a B only 8
      divides, and at k = 128 (a narrow head, and a wide one that takes the
-     streamed tile kernel, by its name in a profile), with identical bits
+     streamed design, by its kernels' names in a profile), with identical bits
      over two runs; its time, device time and GB/s of head beside the two
-     torch.matmul products;
+     torch.matmul products; then K2's streamed design (three kernels: w
+     rounded, lp / gradient / gc, corr; tools/bench_head_streamed.py) at
+     bf16 D 16384 k 17, 53 and 128 (multinomial) and k 53 (mgaussian), B
+     8192, f32 D 3072 k 100 B 4096 (CIFAR-100), f32 D 785 k 128 (rows
+     4-byte aligned) and bf16 D 4096 k 128 B 1032, against its twin (bf16:
+     g within 1e-4 x max(max|g|, 1), corr within 1e-3 x max|corr|; f32: g
+     1e-5, corr 2e-3) with identical bits over two launches and each kernel
+     in a profile; timed
+     at CIFAR-100's shape on a 53248-row head (a call, on the device by
+     kernel, the plain twin, the two torch.mm products, the bound);
   4. K1 (the whole-epoch kernel) against its twins: one epoch on the
      bundled datasets and a seeded poisson set; then every variant (one
      warp at p 11 and 20, many warps with column groups, 16 lanes a row,
@@ -54,6 +65,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on plain torch ops on the first 5 lambdas; its K3 launches, walls, and
      the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
+ 9b. slice M: slice C's design with 53 classes (LIBSVM rcv1.multiclass's
+     count) drawn from a seeded softmax model over head and tail columns
+     (tools/profile_sparse_slices.py `make_sparse_multiclass_labels`),
+     multinomial, slice C's settings, the first 3 lambdas: K2's streamed
+     design at the step's shape (bf16 106496 x 16384, k 53, B 8192)
+     against its twin and timed as at CIFAR-100's shape, then fit()
+     through K2 (streamed) + K3 + K4 at k 53, K3 (with and without its
+     epilogue) and K4 at k 53 against their plain versions on every block
+     of the tail the fit packed (1e-5 relative, the same bits over two
+     runs), the fit held per lambda by penalized objective against the
+     same fit on plain torch ops on the first 2 lambdas (1e-4 relative),
+     with its walls, epochs, nnz/s, peak
+     device memory, the step's profile and the streamed kernels in the
+     fit's profile;
  10. slice D: the same data on an int8 32768-wide head (K3 + K4; the head
      products are torch), on the first 3 lambdas of its 10-lambda path,
      held the same way on the first 2 lambdas;
@@ -94,7 +119,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      every fold), against the same call on plain torch ops on the first 2
      lambdas (1e-3 relative), with each fold's wall beside slice C's unmasked path, the
      call's wall and peak device memory; then serial CV of the same folds
-     (a fit on each fold's rows), each fit's wall;
+     on the first 3 lambdas (a fit on each fold's rows), each fit's wall;
  16. screening: slice C with screen=True and screen="auto" on slice C's
      path, each lambda's penalized objective within 1e-4 relative of the
      unscreened fit's; a seeded 65536 x 4096 dense gaussian (32 true
@@ -160,7 +185,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      path within 1e-3 relative of the full one by each lambda's penalized
      objective (its coefficient gap and the JAX tool's 2e-3 x scale
      verdict printed beside it).
-Each path (slices A-E, the three probe entry points, the CV calls, the
+Each path (slices A-E and M, the three probe entry points, the CV calls, the
 screened fits, the meshed fits, in each rank, phase 18's and phase 19's)
 runs with the launch counts set to 0 just before it and read just after.
 Then a JSON line with every number, one JSON line of the kernels, the
@@ -187,11 +212,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: read twice; K4: one thread per column; K3: one thread a (row, class),
 #: checks and the stream read on every call; P1: K1's first one-CTA design,
 #: operands from L2; P3: a cp.async ring, a CTA a strip, its best ring 2 x
-#: 512): ms a call and ms on the device (P1: and ns a step).  Printed
+#: 512; K2's streamed design, at slice M's and CIFAR-100's shapes: the same
+#: tile kernel, w re-read per row, a (k, D) partial per tile): ms a call
+#: and ms on the device (P1: and ns a step).  Printed
 #: beside the new times only: the `kernels` line holds what this run measured
 EARLIER = {"k2_f32": (0.0704, 0.0609), "k2_bf16": (1.2852, 1.2720), "k4": (0.1272, 0.0045),
            "k4_probe_shape": (0.0942, 0.0307), "k3": (0.0316, 0.0034), "p1": (0.4422, 0.4532, 3433),
-           "p3": (0.0991, 0.0965)}
+           "p3": (0.0991, 0.0965), "k2_streamed_m": (8.9518, 8.9285), "k2_streamed_cifar": (2.0913, 2.0672)}
 #: the same card model and limit before K1 was redesigned (its earlier
 #: persistent 512-thread CTA an epoch, operands from L2, a second launch
 #: for the refresh): an abalone epoch in ms a call and ms on the device, µs
@@ -209,14 +236,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def roofline(nbytes: float, flops: float, peak: float) -> dict:
@@ -338,6 +357,69 @@ def phase_k2(rng, dev):
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
             "two_products_ms": two_ms, "device_ms": dev_ms, "head_gb_per_s": gbs}
+
+
+def start_sass_dump(lib_path: str) -> subprocess.Popen:
+    """cuobjdump (beside nvcc) of the library's SASS, started in the
+    background: it takes seconds of the host, not of the card."""
+    from sgdnet_tpu_torch.utils import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return subprocess.Popen([tool, "-sass", lib_path], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tensor_core_check(dump: subprocess.Popen) -> dict:
+    """HMMA instructions in the SASS of K2's streamed bf16 kernels: their
+    products run on the tensor cores."""
+    sass, err = dump.communicate()
+    check(dump.returncode == 0, f"cuobjdump failed: {err}")
+    found = {"head_step_streamed": 0, "head_corr_streamed": 0}
+    fn = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif "HMMA" in line and "nv_bfloat16" in fn:
+            for name in found:
+                found[name] += name in fn
+    print(f"  HMMA instructions in the bf16 SASS of {found}")
+    check(all(found.values()), f"K2's streamed bf16 kernels hold no tensor-core instructions: {found}")
+    return found
+
+
+def _streamed_line(r) -> str:
+    sh = r["shape"]
+    by = ", ".join(f"{k} {_fmt(v)}" for k, v in r["device_ms_by_kernel"].items())
+    return (f"{sh['family']:11s} {sh['dtype']:8s} D={sh['D']} k={sh['k']:3d} B={sh['B']} "
+            f"({'planned' if r['planned'] else 'resident by plan, launched streamed'}; C {r['plan']['C']}, "
+            f"R {r['plan']['R']}, kp {r['plan']['kp']}): max|dg|={r['max_abs_dg']:.3e} (max|g|={r['max_abs_g']:.3e}) "
+            f"max|dcorr|="
+            f"{r['max_abs_dcorr']:.3e} (max|corr|={r['max_abs_corr']:.3e}), bits identical over two launches; "
+            f"device by kernel: {by}")
+
+
+def _streamed_times(label, r, earlier, card) -> None:
+    print(f"  K2 streamed at {label} ({r['plan']}): {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the device "
+          f"({_pct(r['bound_ms'], r['device_ms'])} of the bound {r['bound_ms']:.4f} ms, {r['bound_by']}; "
+          f"earlier {earlier[0]} / {earlier[1]}), plain twin {r['plain_ms']:.4f} ms, the two torch.mm products "
+          f"{r['two_products_ms']:.4f} ms [{card}]")
+
+
+def phase_k2_streamed(dev, seed, card) -> dict:
+    """K2's streamed design at every checked shape, then timed at
+    CIFAR-100's (tools/bench_head_streamed.py)."""
+    from sgdnet_tpu_torch.tools import bench_head_streamed as bhs
+
+    worst = 0.0
+    for case in bhs.CASES:
+        r = bhs.run_shape(dev, seed, *case, timed=False)
+        print(f"  K2 streamed {_streamed_line(r)} ok")
+        if r["shape"]["dtype"] == "float32":
+            worst = max(worst, r["max_abs_dg"], r["max_abs_dcorr"])
+        torch.cuda.empty_cache()
+    r = bhs.run_shape(dev, seed, *bhs.SHAPES["CIFAR"])
+    _streamed_times("CIFAR-100's shape, f32 53248 x 3072 k 100 B 4096", r, EARLIER["k2_streamed_cifar"], card)
+    torch.cuda.empty_cache()
+    return dict(r, f32_max_abs_err=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -717,16 +799,17 @@ def check_slice_b(f, wall, launches, xt, y, dev, card, seed):
 # ---------------------------------------------------------------------------
 
 
-def _tail_block_check(tk, bt, blk, rng, dev, what):
-    """K3 against its plain version on one block at k 1, 3 and 10, f32 and
-    f64, without and with its epilogue (base, intercept, offsets), and K4 at
-    k 1 in f32: the worst relative and absolute errors; each kernel gives
-    the same bits in two runs."""
+def _tail_block_check(tk, bt, blk, rng, dev, what, ks=(1, 3, 10), outer_k=1, f64=True):
+    """K3 against its plain version on one block at each k of `ks`, f32 and
+    (where `f64`) f64, without and with its epilogue (base, intercept,
+    offsets), and K4 at `outer_k` in f32: the worst relative and absolute
+    errors; each kernel gives the same bits in two runs."""
     import dataclasses
 
     worst_rel = worst_err = 0.0
-    for bd in (bt, dataclasses.replace(bt, vals=bt.vals.double(), vals_by_col=bt.vals_by_col.double())):
-        for k in (1, 3, 10):
+    kinds = (bt, dataclasses.replace(bt, vals=bt.vals.double(), vals_by_col=bt.vals_by_col.double())) if f64 else (bt,)
+    for bd in kinds:
+        for k in ks:
             t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=bd.dtype, device=dev)  # noqa: E731
             w = t(k, bd.n_cols)
             for given in ({}, dict(base=t(bd.batch, k), intercept=t(k), offs=t(bd.batch, k))):
@@ -740,14 +823,14 @@ def _tail_block_check(tk, bt, blk, rng, dev, what):
                 check(rel <= 1e-5, f"K3 disagrees with its plain version ({tag}): rel {rel:.3e}")
                 check(same, f"K3 gave different bits in two runs ({tag})")
                 worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
-    gc = torch.as_tensor(rng.standard_normal((bt.batch, 1), dtype=np.float32), device=dev)
+    gc = torch.as_tensor(rng.standard_normal((bt.batch, outer_k), dtype=np.float32), device=dev)
     o, o_ref = tk.coo_tail_outer(bt, blk, gc), tk.coo_tail_outer_reference(bt, blk, gc)
     same = torch.equal(o, tk.coo_tail_outer(bt, blk, gc))
     torch.cuda.synchronize()
     err = float((o - o_ref).abs().max())
     rel = err / max(float(o_ref.abs().max()), 1e-30)
-    check(rel <= 1e-5, f"K4 disagrees with its plain version ({what}, block {blk}): rel {rel:.3e}")
-    check(same, f"K4 gave different bits in two runs ({what}, block {blk})")
+    check(rel <= 1e-5, f"K4 disagrees with its plain version ({what}, block {blk}, k {outer_k}): rel {rel:.3e}")
+    check(same, f"K4 gave different bits in two runs ({what}, block {blk}, k {outer_k})")
     return max(worst_rel, rel), max(worst_err, err)
 
 
@@ -1013,17 +1096,22 @@ def profile_slice(name, csr, y, dev, seed, kw, card) -> dict:
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = [{"kernel": e.key[:60], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in
            sorted(kern, key=dev_us, reverse=True)[:6]]
+    from sgdnet_tpu_torch.solver.head_kernel import KERNEL_NAMES
+
+    k2 = {nm: sum(e.count for e in kern if nm in e.key) for nm in KERNEL_NAMES}
     print(f"  slice {name} profile (a 2-lambda fit, {f.npasses} epochs, under torch.profiler): {wall:.3f} s wall, "
           f"{f.stats['wall_time_s']:.3f} s path, device busy {busy:.3f} s = {busy / wall:.3f} of the wall [{card}]")
     for t in top:
         print(f"    {t['device_ms']:10.3f} ms  {t['calls']:6d} calls  {t['kernel']}")
     return {"wall_s": wall, "path_s": f.stats["wall_time_s"], "epochs": f.npasses, "busy_s": busy,
-            "busy_share": busy / wall, "top": top}
+            "busy_share": busy / wall, "top": top, "k2_kernel_calls": k2}
 
 
-def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, seed, kw, card, plain_lambdas=None):
+def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, seed, kw, card, plain_lambdas=None,
+                       profile=True):
     """The slice's checks and numbers; the plain comparison fit runs the
-    first `plain_lambdas` lambdas of its path (None: all)."""
+    first `plain_lambdas` lambdas of its path (None: all); `profile`:
+    where its device time goes (`profile_slice`)."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.tools.profile_sparse_slices import step_profile
 
@@ -1066,13 +1154,118 @@ def check_sparse_slice(name, f, wall, peak, launches, step, csr, y, sd, dev, see
     print(f"  slice {name} penalized objective per lambda, kernels vs plain: max rel diff {rel:.3e} (bound 1e-4); "
           f"objective {ok.round(6)}; dev_ratio {dr.round(4)}; return codes {f.return_codes.tolist()}")
     check(rel <= 1e-4, f"slice {name}: the kernels' path disagrees with the plain path")
-    prof = profile_slice(name, csr, y, dev, seed, kw, card)
+    prof = profile_slice(name, csr, y, dev, seed, kw, card) if profile else None
     return {"profile": prof, "step": sp_, "wall_s": wall, "path_s": path, "setup_s": wall - path, "epochs": f.npasses,
             "nnz_per_s": nnz_s,
             "peak_bytes": peak, "head_width": lay["head_width"], "launches": launches, "plain_wall_s": wall_p,
             "plain_lambdas": fp.n_lambda, "plain_path_s": path_p, "plain_epochs": fp.npasses, "plain_nnz_per_s": nnz_p,
             "plain_peak_bytes": peak_p,
             "objective_max_rel_diff": rel}
+
+
+def _objective_multinomial(f, xt, yt, sd):
+    """Per-lambda penalized objective of a multinomial lasso fit on the
+    original data: mean cross-entropy + lambda |beta * sd|_1 over classes
+    and columns, in f64 torch ops on the card (xt the design as a sparse
+    CSR tensor, yt the class codes 0 .. k - 1)."""
+    out = []
+    rows = torch.arange(xt.shape[0], device=xt.device)
+    for i, lam in enumerate(f.lambda_):
+        b = torch.as_tensor(f.beta[i], device=xt.device)
+        lp = xt @ b.T + torch.as_tensor(np.asarray(f.a0)[i], device=xt.device)[None, :]
+        loss = torch.mean(torch.logsumexp(lp, 1) - lp[rows, yt])
+        out.append(float(loss) + lam * float(np.abs(f.beta[i] * sd[None, :]).sum()))
+    return np.asarray(out)
+
+
+def phase_slice_m(csr, sd, rng, dev, seed, card, launches) -> tuple:
+    """Slice M: K2's streamed design at the step's shape, then the fit
+    through K2 + K3 + K4 at 53 classes, held to the plain fit; K3 / K4 at
+    k 53 on every block of the tail the fit packed."""
+    import sgdnet_tpu_torch as st
+    from sgdnet_tpu_torch.solver import head_kernel as hk
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+    from sgdnet_tpu_torch.tools import bench_head_streamed as bhs
+    from sgdnet_tpu_torch.tools.profile_sparse_slices import SLICE_M, make_sparse_multiclass_labels, step_profile
+
+    t_ph = time.perf_counter()
+
+    def since() -> str:
+        return f"[{time.perf_counter() - t_ph:.1f} s into phase 9b]"
+
+    k2 = bhs.run_shape(dev, seed, *bhs.SHAPES["M"])
+    print(f"  K2 streamed {_streamed_line(k2)} ok {since()}")
+    _streamed_times("slice M's shape, bf16 106496 x 16384 k 53 B 8192", k2, EARLIER["k2_streamed_m"], card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    y = make_sparse_multiclass_labels(csr, seed=seed)
+    counts = np.bincount(y)
+    print(f"  slice M labels: {len(counts)} classes, {counts.min()} to {counts.max()} rows a class, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kw = {**SLICE_M, **FIRST_THREE}
+    _reset_launches()
+    f, wall, peak, step = run_sparse_slice(csr, y, dev, seed, kw)
+    launches["M"] = n = _launches()
+    lay = f.stats["layout"]
+    B, D, k = kw["batch_size"], lay["head_width"], f.beta.shape[1]
+    print(f"  slice M ({csr.shape[0]} x {csr.shape[1]}, {k} classes, {lay['head_dtype']} head {D} wide, B {B}, "
+          f"{len(f.lambda_)} lambdas): launches K2 {n['K2']}, K3 {n['K3']}, K4 {n['K4']} [{card}]")
+    check(k == 53 and not hk.plan(B, D, k, torch.bfloat16).resident, "slice M's step does not take the streamed K2")
+    check(f.stats["head_kernel"] is True and f.stats["tail_kernel"] is True and min(n["K2"], n["K3"], n["K4"]) > 0,
+          "slice M did not run through K2 + K3 + K4")
+    check(np.isfinite(f.beta).all() and np.isfinite(f.dev_ratio).all(), "slice M: non-finite path")
+    dr = f.dev_ratio
+    check(dr[-1] > dr[0] and np.all(np.diff(dr) >= -1e-3), f"slice M: dev_ratio does not rise: {dr}")
+    path = f.stats["wall_time_s"]
+    nnz_s = f.npasses * csr.shape[0] * 76 / path
+    print(f"  slice M through the kernels: {wall:.3f} s fit wall, {path:.3f} s path, {wall - path:.3f} s set-up, "
+          f"{f.npasses} epochs, {nnz_s:.4g} nnz/s on the path, peak device memory {peak / 2**30:.2f} GiB [{card}] "
+          f"{since()}")
+    bt = step[1].blk_tail
+    tail_rel = tail_err = 0.0
+    for blk in range(bt.n_blocks):
+        rel, err = _tail_block_check(tk, bt, blk, rng, dev, "slice M", ks=(k,), outer_k=k, f64=False)
+        tail_rel, tail_err = max(tail_rel, rel), max(tail_err, err)
+    print(f"  K3/K4 on slice M's {bt.n_blocks} tail blocks as the fit packed them (E {bt.rows.shape[1]}): K3 at "
+          f"k {k}, f32, with and without its epilogue, K4 at k {k}: worst rel err {tail_rel:.3e} (bound 1e-5), "
+          f"bits identical over two runs {since()}")
+    bt = None
+    sp_ = step_profile(*step, dev)
+    step = None
+    print(f"  slice M step (one epoch of its {sp_['steps']} blocks, the fit's own step): {sp_['ms_per_step']:.4f} ms "
+          f"a step on the host clock, {sp_['kernels_per_step']:.2f} kernel launches a step [{card}] {since()}")
+    plain_kw = {key: v for key, v in kw.items() if key != "nlambda"}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fp = st.fit(csr, y, device=dev, seed=seed, lambda_path=f.lambda_[:2], use_pallas=False, use_tail_kernel=False,
+                **plain_kw)
+    wall_p = time.perf_counter() - t0
+    peak_p = torch.cuda.max_memory_allocated()
+    check(fp.stats["head_kernel"] is False and fp.stats["tail_kernel"] is False, "plain slice M ran a kernel")
+    xt = torch.sparse_csr_tensor(torch.as_tensor(csr.indptr, dtype=torch.int64),
+                                 torch.as_tensor(csr.indices, dtype=torch.int64),
+                                 torch.as_tensor(csr.data, dtype=torch.float64), csr.shape).to(dev)
+    yt = torch.as_tensor(y, device=dev)
+    ok, op = _objective_multinomial(f, xt, yt, sd)[: fp.n_lambda], _objective_multinomial(fp, xt, yt, sd)
+    xt = yt = None
+    rel = float(np.max(np.abs(ok - op) / np.abs(op)))
+    print(f"  slice M on plain torch ops, the first {fp.n_lambda} lambdas: {wall_p:.3f} s fit wall, "
+          f"{fp.stats['wall_time_s']:.3f} s path, {fp.npasses} epochs, peak {peak_p / 2**30:.2f} GiB [{card}] "
+          f"{since()}")
+    print(f"  slice M penalized objective per lambda, kernels vs plain: max rel diff {rel:.3e} (bound 1e-4); "
+          f"objective {ok.round(6)}; dev_ratio {dr.round(4)}; return codes {f.return_codes.tolist()}")
+    check(rel <= 1e-4, "slice M: the kernels' path disagrees with the plain path")
+    prof = profile_slice("M", csr, y, dev, seed, kw, card)
+    streamed = {nm: prof["k2_kernel_calls"][nm] for nm in hk.STREAMED_KERNELS}
+    print(f"  slice M's profile: the streamed K2 kernels' calls {streamed} {since()}")
+    check(min(streamed.values()) > 0, f"slice M's profile shows no streamed K2 kernel: {streamed}")
+    out = {"k2": k2, "profile": prof, "step": sp_, "wall_s": wall, "path_s": path, "setup_s": wall - path,
+           "epochs": f.npasses, "nnz_per_s": nnz_s, "peak_bytes": peak, "head_width": D, "launches": n,
+           "plain_wall_s": wall_p, "plain_lambdas": fp.n_lambda, "plain_path_s": fp.stats["wall_time_s"],
+           "plain_epochs": fp.npasses, "plain_peak_bytes": peak_p, "objective_max_rel_diff": rel,
+           "class_rows": [int(counts.min()), int(counts.max())], "tail_max_abs_err": tail_err,
+           "tail_max_rel_err": tail_rel}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1452,8 +1645,9 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
     its 10-lambda path, use_pallas=True (K2 + K3 + K4), held to the same
     call on plain torch ops; each fold's wall beside one unmasked slice C
     path of this run, the whole call's wall and peak device memory; then
-    serial CV of the same folds (`cv_fit`, a fit on each fold's rows) with
-    each fit's wall, the other way to run them."""
+    serial CV of the same folds on the path's first 3 lambdas (`cv_fit`, a
+    fit on each fold's rows) with each fit's wall, the other way to run
+    them."""
     import sgdnet_tpu_torch as st
     from sgdnet_tpu_torch.api import cv as cvmod
     from sgdnet_tpu_torch.parallel.cv import parallel_fold_scores
@@ -1502,14 +1696,15 @@ def phase_cv_slice_c(csr, y, lam_c, path_c, dev, seed, card, launches) -> dict:
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cv_s = st.cv_fit(csr, y, foldid=foldid, lambda_path=lam_c, alpha=1.0, device=dev, seed=seed, **kw)
+        cv_s = st.cv_fit(csr, y, foldid=foldid, lambda_path=lam_c[:3], alpha=1.0, device=dev, seed=seed, **kw)
         wall_s = time.perf_counter() - t0
     finally:
         cvmod.fit_fn = real_fit
     peak_s = torch.cuda.max_memory_allocated()
-    gap = float(np.max(np.abs(cv_s.cv_raw[0] - k["scores"]) / np.abs(cv_s.cv_raw[0])))
+    gap = float(np.max(np.abs(cv_s.cv_raw[0] - k["scores"][:, :3]) / np.abs(cv_s.cv_raw[0])))
     check(np.isfinite(cv_s.cv_raw[0]).all() and len(walls) == 4, "CV slice C: serial CV failed")
-    print(f"  CV slice C serial (cv_fit: the full-data fit, then a fit on each fold's rows): {wall_s:.3f} s; fold "
+    print(f"  CV slice C serial (cv_fit on the first 3 lambdas: the full-data fit, then a fit on each fold's rows): "
+          f"{wall_s:.3f} s; fold "
           f"fits {[round(w[0], 3) for w in walls[1:]]} s wall, {[round(w[1], 3) for w in walls[1:]]} s path, "
           f"{[w[2] for w in walls[1:]]} epochs (the full-data fit {walls[0][0]:.3f} s); peak "
           f"{peak_s / 2**30:.2f} GiB; its scores vs the fold-parallel ones: max rel diff {gap:.3e} [{card}]")
@@ -2399,6 +2594,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     from sgdnet_tpu_torch.utils import build
+    from sgdnet_tpu_torch.utils.device import card_line
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -2421,9 +2617,14 @@ def main(argv=None) -> int:
     info = build.build_info()
     print(f"  {'built' if info['built'] else 'loaded'} {os.path.relpath(info['path'], ROOT)} "
           f"in {info['seconds']:.2f} s")
+    sass_dump = start_sass_dump(info["path"])
 
     phase("phase 3: K2 vs twin")
     k2 = phase_k2(rng, dev)
+    phase("phase 3: K2's streamed design vs twin")
+    k2_streamed = phase_k2_streamed(dev, args.seed, card)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_streamed["f32_max_abs_err"])
+    hmma = tensor_core_check(sass_dump)
     phase("phase 4: K1 vs twin")
     k1, k1_epoch = phase_k1(rng, dev)
 
@@ -2463,13 +2664,18 @@ def main(argv=None) -> int:
                                  SLICE_C, card, plain_lambdas=5)
     lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
     fit_c = step_c = None
+    torch.cuda.empty_cache()
+    phase("phase 9b: slice M (53 classes on slice C's design: K2's streamed design + K3 + K4), with the launch "
+          "counts set to 0 just before its fit")
+    slice_m = phase_slice_m(csr, sd, rng, dev, args.seed, card, launches)
+    torch.cuda.empty_cache()
     phase("phase 10: slice D")
     kw_d = {**SLICE_D, **FIRST_THREE}
     _reset_launches()
     fit_d, wall_d, peak_d, step_d = run_sparse_slice(csr, y_sp, dev, args.seed, kw_d)
     launches["D"] = _launches()
     slice_d = check_sparse_slice("D", fit_d, wall_d, peak_d, launches["D"], step_d, csr, y_sp, sd, dev, args.seed,
-                                 kw_d, card, plain_lambdas=2)
+                                 kw_d, card, plain_lambdas=2, profile=False)
     fit_d = step_d = None
     torch.cuda.empty_cache()
 
@@ -2486,7 +2692,7 @@ def main(argv=None) -> int:
     fit_e, wall_e, peak_e, step_e = run_sparse_slice(csr, y_sp, dev, args.seed, kw_e)
     launches["E"] = _launches()
     slice_e = check_sparse_slice("E", fit_e, wall_e, peak_e, launches["E"], step_e, csr, y_sp, sd, dev, args.seed,
-                                 kw_e, card, plain_lambdas=2)
+                                 kw_e, card, plain_lambdas=2, profile=False)
     step_e = None
     slice_e["plan"] = planner_check(fit_e, ceiling, k3, k4, card)
     # the widths on the path's first lambda (its maxit of epochs): ms an
@@ -2538,10 +2744,11 @@ def main(argv=None) -> int:
     bench_leg = phase_bench(csr, y_sp, rng, dev, args.seed, card, launches)
     k2w["max_abs_err"] = max(k2w["max_abs_err"], bench_leg["k2_max_abs_err"])
     for k in (k3, k4):
-        k["max_abs_err"] = max(k["max_abs_err"], bench_leg["tail_max_abs_err"])
+        k["max_abs_err"] = max(k["max_abs_err"], bench_leg["tail_max_abs_err"], slice_m["tail_max_abs_err"])
     phase("every phase passed")
-    print(json.dumps({"card": card, "build_s": info["seconds"], "slice_a": slice_a, "slice_b": slice_b,
-                      "slice_c": slice_c, "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
+    print(json.dumps({"card": card, "build_s": info["seconds"], "hmma": hmma, "k2_streamed_cifar": k2_streamed,
+                      "slice_a": slice_a, "slice_b": slice_b, "slice_c": slice_c, "slice_m": slice_m,
+                      "slice_d": slice_d, "slice_e": slice_e, "probes": probes,
                       "full_head_sum": ceiling, "cv_abalone": cv_a, "cv_slice_c": cv_c, "screening": screening,
                       "data_parallel": {"dp_c1": dp1, **dp2},
                       "surface": {"protocol": protocol, "chunk_a": chunk_a, "ckpt_a": ckpt_a, "libsvm_c": libsvm_c,
@@ -2551,8 +2758,9 @@ def main(argv=None) -> int:
         return {"launches": sum(launches[p][key] for p in paths),
                 "launches_by_path": {p: launches[p][key] for p in paths}}
 
+    k2m = slice_m["k2"]
     tail_src, tail_rep = "sgdnet_tpu_torch/csrc/coo_tail.cu", "tools/bench_pallas_gather.py:80,100,116,140"
-    tail_paths = ["C", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2", "libsvm_c",
+    tail_paths = ["C", "M", "D", "E", "cv_slice_c", "screen_true_c", "screen_auto_c", "dp_c1", "dp_c2", "libsvm_c",
                   "bench_1", "bench_2", "bench_3", "validate", "e2e"]
     probe_src = "sgdnet_tpu_torch/csrc/probes.cu"
     print(json.dumps({"kernels": [
@@ -2567,6 +2775,11 @@ def main(argv=None) -> int:
         {"name": "fused_head_step_at (K2), bf16 D=16384 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", ["C", "H", "cv_slice_c", "dp_c1", "dp_c2", "libsvm_c", "bench_3"]), **k2w},
+        {"name": "fused_head_step_at (K2, streamed), bf16 D=16384 k=53 B=8192", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
+         **by_path("K2", ["M"]), "max_abs_err": max(k2m["max_abs_dg"], k2m["max_abs_dcorr"]),
+         **{key: k2m[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "two_products_ms", "device_ms")},
+         "library_ms": None},
         {"name": "fused_head_step_at (K2), f32 screened subsets, D=512 k=1 B=8192", "route": "cuda",
          "source": "sgdnet_tpu_torch/csrc/head_step.cu", "replaces": "sgdnet_tpu/solver/pallas_kernels.py:265",
          **by_path("K2", ["screen_true_c", "screen_auto_c", "screen_true_wide", "screen_auto_wide"]), **k2s},

@@ -25,10 +25,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// loads in f32 from the head's storage type
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 // rounding of an f32 operand to the head's storage type before the
 // multiply (bf16 heads: w and gc are cast to bf16, products accumulate f32)
 template <typename T>

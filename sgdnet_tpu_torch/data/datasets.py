@@ -34,9 +34,15 @@ def load_abalone():
     return d["x"], d["y"]
 
 
-def load_heart():
+def load_heart(sparse: bool = False):
+    """heart's x (a scipy CSR matrix when `sparse`) and y."""
     d = load_dataset("heart")
-    return d["x"], d["y"]
+    x = d["x"]
+    if sparse:
+        import scipy.sparse as sp
+
+        x = sp.csr_matrix(x)
+    return x, d["y"]
 
 
 def load_wine():

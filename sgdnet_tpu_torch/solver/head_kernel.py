@@ -30,9 +30,12 @@ FAMILIES = ("gaussian", "binomial", "multinomial", "mgaussian")
 _FAMILY_CODE = {"gaussian": 0, "binomial": 1, "multinomial": 3, "mgaussian": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the device kernels one launch runs, by their names in a profile
-#: (csrc/head_step.cu: one of the first two, then `sum_partials` where the
-#: plan has more than one partial corr)
-KERNEL_NAMES = ("head_step_resident", "head_step_streamed", "sum_partials")
+#: (csrc/head_step.cu): the resident design's kernel, then `sum_partials`
+#: where its plan has more than one partial corr; or the streamed design's
+#: three, w rounded, lp / gradient / gc, corr
+RESIDENT_KERNELS = ("head_step_resident", "sum_partials")
+STREAMED_KERNELS = ("head_round_w", "head_step_streamed", "head_corr_streamed")
+KERNEL_NAMES = RESIDENT_KERNELS + STREAMED_KERNELS
 #: class count limit (the JAX kernel pads k to at most 128 lanes)
 MAX_K = 128
 #: threads of a CTA, and the shared memory one CTA can use on Hopper
@@ -42,6 +45,11 @@ SMEM_LIMIT = 232448
 #: its own bytes and 1024 reserved): the persistent grid's default size
 N_SM = 132
 SMEM_PER_SM = 233472
+#: the streamed design (csrc/head_step.cu): rows of an lp tile, columns of
+#: a corr strip, ring stages; by the head's item size, columns of an lp
+#: stage (128 bytes), rows of a corr stage and the 16-byte row padding
+S_ROWS, S_COLS, S_STAGES = 128, 128, 4
+_S_TILES = {2: (64, 64, 8), 4: (32, 32, 4)}  # item size -> (BK, BR, PAD)
 
 
 class HeadPlan(NamedTuple):
@@ -54,13 +62,67 @@ class HeadPlan(NamedTuple):
     W: int  # columns of a strip (a multiple of 16 bytes)
     S: int  # ring stages
     tpc: int  # consecutive tiles one cluster walks
-    n_parts: int  # clusters (resident) or tiles (streamed): partial corrs
+    n_parts: int  # clusters: partial corrs
     single: bool  # corr accumulators live in registers across the tiles
     smem: int  # dynamic shared memory of a CTA, bytes
 
     @property
     def ctas(self) -> int:
         return self.n_parts * self.C
+
+
+class StreamPlan(NamedTuple):
+    """The streamed design's launch parameters (`stream_plan`), as
+    csrc/head_step.cu `sgd_head_step_streamed` takes them."""
+
+    kp: int  # classes rounded up to 16 (the mma's tiles); pad classes are zero
+    C: int  # lp kernel: CTAs of a cluster, D cut into C runs of BK-column chunks
+    n_kc: int  # BK-column chunks of D
+    R: int  # corr kernel: CTAs of a cluster, the rows cut into R runs of BR-row chunks
+    tiles: int  # 128-row tiles of B: the lp grid's clusters
+    strips: int  # 128-column strips of D: the corr grid's clusters
+    smem: int  # the lp kernel's dynamic shared memory, bytes
+    smem2: int  # the corr kernel's
+    resident = False
+
+    @property
+    def ctas(self) -> tuple:
+        return self.tiles * self.C, self.strips * self.R
+
+
+def stream_plan(B: int, D: int, k: int, dtype, C: int, R: int) -> StreamPlan:
+    """The streamed design at lp clusters of C CTAs and corr clusters of R.
+
+    Shared memory of an lp CTA: 4 stages of a 128 x BK head chunk and a kp
+    x BK w chunk (rows padded by 16 bytes), then the lp of the 128 / C rows
+    it owns (f32); the tile's lp part (128 x kp f32) reuses the drained
+    ring.  Of a corr CTA: 4 stages of a BR x 128 head chunk and a BR x kp
+    gc chunk; the strip's part (kp x 128 f32, where R > 1) reuses the ring.
+    BK / BR: 64 / 64 on a bf16 head, 32 / 32 on an f32 one."""
+    es = dtype.itemsize
+    bk, br, pad = _S_TILES[es]
+    kp = -(-k // 16) * 16
+    smem = max(S_STAGES * (S_ROWS + kp) * (bk + pad) * es, 4 * S_ROWS * kp) + 4 * (S_ROWS // C) * kp
+    smem2 = max(S_STAGES * br * (S_COLS + pad + kp + pad) * es, 4 * kp * S_COLS if R > 1 else 0)
+    return StreamPlan(kp, C, -(-D // bk), R, -(-B // S_ROWS), -(-D // S_COLS), smem, smem2)
+
+
+def streamed_plan(B: int, D: int, k: int, dtype, max_ctas: int | None = None) -> StreamPlan:
+    """The streamed design's plan: C (and R) the largest of 1, 2, 4, 8 whose
+    lp (corr) grid is at most `max_ctas` CTAs, one wave of the card (by
+    default N_SM: a CTA of either kernel takes most of an SM's shared
+    memory at the wide shapes), with no CTA left without columns (rows).
+
+    bf16 D 16384 k 53 B 8192 (slice M): kp 64, 64 tiles x C 2 (128 CTAs,
+    128 of 256 chunks of 64 columns each), 128 strips x R 1; f32 D 3072 k
+    100 B 4096 (CIFAR-100): kp 112, 32 tiles x C 4, 24 strips x R 4."""
+    cap = N_SM if max_ctas is None else max_ctas
+    bk, br, _ = _S_TILES[dtype.itemsize]
+    tiles, strips = -(-B // S_ROWS), -(-D // S_COLS)
+    n_kc, n_ch = -(-D // bk), tiles * S_ROWS // br
+    C = max(c for c in (1, 2, 4, 8) if c == 1 or (tiles * c <= cap and c <= n_kc))
+    R = max(r for r in (1, 2, 4, 8) if r == 1 or (strips * r <= cap and r <= n_ch))
+    return stream_plan(B, D, k, dtype, C, R)
 
 
 def _resident_smem(bt: int, W: int, S: int, k: int, es: int, single: bool) -> int:
@@ -143,17 +205,16 @@ def plan(B: int, D: int, k: int, dtype=torch.float32, max_ctas: int | None = Non
     69888 bytes, three CTAs an SM), 47 clusters x 11 tiles (43 x 12 on an
     H100, which holds 43 such clusters at once); f32 D 784 k 10 B 4096: C
     1, bt 16, one tile a CTA (50176 + 31360 + 2560 = 84096 bytes, two an
-    SM).  A shape no C holds (k x D large) takes the streamed tile kernel:
-    32-row tiles (16 or 8 where B needs it), a partial per tile, lp and gc
-    (8 bt k bytes) in shared memory.
+    SM).  A shape no C holds (k x D large) takes the streamed design, a
+    `StreamPlan` (`streamed_plan`): its scratch is w rounded (kp x D) and
+    gc (B x kp), no partial corr.
     """
     if B < 8 or B % 8 or D < 1 or k < 1:
         return None
     found = list(resident_plans(B, D, k, dtype, max_ctas))
     if found:
         return min(found, key=_preference(k))
-    bt = next(bt for bt in (32, 16, 8) if B % bt == 0)
-    return HeadPlan(False, bt, 1, D, 1, 1, B // bt, False, 2 * 4 * bt * k)
+    return streamed_plan(B, D, k, dtype, max_ctas)
 
 
 def supported(B: int, D: int, k: int, dtype=torch.float32, family: str = "gaussian") -> bool:
@@ -194,10 +255,12 @@ def fused_head_step_reference(head, start: int, w_h, lp_extra, yb, g_mem_b, wb, 
     return g, gc.T @ xb
 
 
-#: (device, C, smem, dtype, k == 1) -> clusters of that shape the card holds at once
+#: (device, C, smem, dtype, k == 1), or a streamed plan's shape class ->
+#: clusters of that shape the card holds at once
 _MAX_CLUSTERS: dict = {}
-#: (device, stream, n_parts, k, D) -> the partial-corr scratch, kept between
-#: calls; one per stream, so calls of one shape on two streams share none
+#: (device, stream, what, shape, dtype) -> a scratch kept between calls (the
+#: resident design's partial corrs; the streamed design's rounded w and
+#: gc); one per stream, so calls of one shape on two streams share none
 _SCRATCH: dict = {}
 #: (device, dtype, B, D, k) -> the HeadPlan of that shape on that card
 _PLANS: dict = {}
@@ -222,9 +285,14 @@ def _copy_bytes(head: torch.Tensor) -> int:
     return 2
 
 
-def _launch(lib, head, start, B, k, p: HeadPlan, ptrs, family, stream, max_clusters=None) -> int:
+def _launch(lib, head, start, B, k, p, ptrs, family, stream, max_clusters=None) -> int:
+    if not p.resident:
+        return lib.sgd_head_step_streamed(
+            head.data_ptr(), _DTYPE_CODE[head.dtype], int(start), head.shape[1], k, B, p.kp, p.C, p.n_kc, p.R,
+            p.smem, p.smem2, _copy_bytes(head), *ptrs, _FAMILY_CODE[family], stream, max_clusters,
+        )
     return lib.sgd_head_step(
-        head.data_ptr(), _DTYPE_CODE[head.dtype], int(start), head.shape[1], k, B, int(p.resident),
+        head.data_ptr(), _DTYPE_CODE[head.dtype], int(start), head.shape[1], k, B,
         p.bt, p.C, p.W, p.S, p.tpc, p.n_parts, _copy_bytes(head), int(p.single), p.smem,
         *ptrs, _FAMILY_CODE[family], stream, max_clusters,
     )
@@ -256,18 +324,57 @@ def plans_on_card(head: torch.Tensor, B: int, k: int, p: HeadPlan) -> list:
     return list(resident_plans(B, head.shape[1], k, head.dtype, max_ctas=held * p.C))
 
 
-def device_plan(head: torch.Tensor, B: int, k: int) -> HeadPlan:
-    """`plan` for this head on its card: the preferred of `plans_on_card`."""
+def held_stream_clusters(head: torch.Tensor, B: int, k: int, p: StreamPlan) -> tuple:
+    """Clusters of p's lp kernel (C CTAs of p.smem bytes) and of its corr
+    kernel (R CTAs of p.smem2) the card holds at once: asked of the CUDA
+    occupancy calculator once per shape class, then remembered."""
+    key = (head.device, "streamed", p.C, p.smem, p.R, p.smem2, head.dtype)
+    if key not in _MAX_CLUSTERS:
+        out = (ctypes.c_int * 2)()
+        code = _launch(build.load_library(), head, 0, B, k, p, (None,) * 9, "gaussian", None, out)
+        build.check(code, "fused head step (occupancy)")
+        _MAX_CLUSTERS[key] = (out[0], out[1])
+    return _MAX_CLUSTERS[key]
+
+
+def stream_plan_on_card(head: torch.Tensor, B: int, k: int, p: StreamPlan) -> StreamPlan:
+    """p with its clusters halved until each grid is one wave of what the
+    card holds at once (or its clusters are single CTAs); raises where the
+    card holds not even one cluster of single CTAs."""
+    while True:
+        held_lp, held_corr = held_stream_clusters(head, B, k, p)
+        C = p.C // 2 if p.C > 1 and p.tiles > held_lp else p.C
+        R = p.R // 2 if p.R > 1 and p.strips > held_corr else p.R
+        if (C, R) == (p.C, p.R):
+            if min(held_lp, held_corr) < 1:
+                raise RuntimeError(f"fused head step: the card holds no CTA of {p}")
+            return p
+        p = stream_plan(B, head.shape[1], k, head.dtype, C, R)
+
+
+def device_plan(head: torch.Tensor, B: int, k: int):
+    """`plan` for this head on its card: the preferred of `plans_on_card`,
+    or the streamed plan cut to the card (`stream_plan_on_card`)."""
     p = plan(B, head.shape[1], k, head.dtype)
-    if p is None or not p.resident:
+    if p is None:
         return p
+    if not p.resident:
+        return stream_plan_on_card(head, B, k, p)
     return min(plans_on_card(head, B, k, p), key=_preference(k))
 
 
-def head_step_with(p: HeadPlan, head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str):
+def _scratch(dev, stream, what: str, shape, dtype) -> torch.Tensor:
+    key = (dev, stream, what, shape, dtype)
+    t = _SCRATCH.get(key)
+    if t is None:
+        t = _SCRATCH[key] = torch.empty(shape, device=dev, dtype=dtype)
+    return t
+
+
+def head_step_with(p, head, start: int, w_h, lp_extra, yb, g_mem_b, wb, family: str):
     """Launch K2 on a CUDA head with the launch parameters p (a HeadPlan
-    that fits this card: `device_plan`, or one of `plans_on_card`);
-    returns (g (B, k), corr (k, D)), f32."""
+    that fits this card: `device_plan`, or one of `plans_on_card`; or a
+    StreamPlan); returns (g (B, k), corr (k, D)), f32."""
     n_pad, D = head.shape
     B, k = yb.shape
     dev = head.device
@@ -283,15 +390,14 @@ def head_step_with(p: HeadPlan, head, start: int, w_h, lp_extra, yb, g_mem_b, wb
     g = torch.empty((B, k), device=dev, dtype=torch.float32)
     corr = torch.empty((k, D), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if p.n_parts == 1:
-        part = corr
+    ptrs = (w.data_ptr(), lpe.data_ptr(), y.data_ptr(), gm.data_ptr(), wt.data_ptr(), g.data_ptr())
+    if not p.resident:
+        w_r = _scratch(dev, stream, "w_r", (p.kp, p.n_kc * _S_TILES[head.element_size()][0]), head.dtype)
+        gc = _scratch(dev, stream, "gc", (p.tiles * S_ROWS, p.kp + _S_TILES[head.element_size()][2]), head.dtype)
+        ptrs += (corr.data_ptr(), w_r.data_ptr(), gc.data_ptr())
     else:
-        key = (dev, stream, p.n_parts, k, D)
-        part = _SCRATCH.get(key)
-        if part is None:
-            part = _SCRATCH[key] = torch.empty((p.n_parts, k, D), device=dev, dtype=torch.float32)
-    ptrs = (w.data_ptr(), lpe.data_ptr(), y.data_ptr(), gm.data_ptr(), wt.data_ptr(),
-            g.data_ptr(), part.data_ptr(), corr.data_ptr())
+        part = corr if p.n_parts == 1 else _scratch(dev, stream, "part", (p.n_parts, k, D), torch.float32)
+        ptrs += (part.data_ptr(), corr.data_ptr())
     code = _launch(build.load_library(), head, start, B, k, p, ptrs, family, stream)
     build.check(code, "fused head step")
     fused_head_step_at.launches += 1

@@ -42,6 +42,10 @@ SLICE_D = dict(SLICE_C, hybrid_max_head=32768, hybrid_coverage=0.995, hybrid_hea
 #: the planner picks the head width (and the split: coverage 1.0)
 SLICE_E = dict(SLICE_D, hybrid_max_head="auto")
 SLICES = {"C": SLICE_C, "D": SLICE_D, "E": SLICE_E}
+#: slice M: slice C's design and settings on a 53-class response (LIBSVM
+#: rcv1.multiclass: 53 classes over 47,236 features), through the streamed
+#: K2 (no resident plan holds 53 x 16384) and K3 / K4 at k 53
+SLICE_M = dict(SLICE_C, family="multinomial")
 
 
 def make_sparse_binomial(n=100_000, p=47_000, nnz_per_row=76, seed=0):
@@ -53,6 +57,27 @@ def make_sparse_binomial(n=100_000, p=47_000, nnz_per_row=76, seed=0):
     x = bench._to_scipy(data)
     x.sum_duplicates()
     return x, y.ravel()
+
+
+def make_sparse_multiclass_labels(x, k: int = 53, per_class: int = 300, head: int = 16384, seed: int = 0):
+    """Slice M's labels on the design x (a scipy CSR, n x p): a seeded
+    softmax model over k classes, each with `per_class` nonzero true
+    coefficients N(0, 3^2), half drawn among the `head` most used columns
+    and half among the rest, and y (n,) drawn from softmax(x W) by the
+    Gumbel trick.  Raises if a class draws no row."""
+    rng = np.random.default_rng(seed)
+    n, p = x.shape
+    order = np.argsort(-np.bincount(x.indices, minlength=p), kind="stable")
+    w = np.zeros((p, k))
+    for c in range(k):
+        cols = np.concatenate([rng.choice(order[:head], per_class // 2, replace=False),
+                               rng.choice(order[head:], per_class - per_class // 2, replace=False)])
+        w[cols, c] = 3.0 * rng.normal(size=per_class)
+    y = np.argmax(np.asarray(x @ w) + rng.gumbel(size=(n, k)), axis=1)
+    counts = np.bincount(y, minlength=k)
+    if counts.min() == 0:
+        raise RuntimeError(f"slice M's labels: class {int(np.argmin(counts))} drew no row")
+    return y
 
 
 def cuda_ms(fn, reps: int) -> float:

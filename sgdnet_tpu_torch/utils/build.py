@@ -39,8 +39,13 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "sgd_head_step": (
-        [_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        [_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+        ctypes.c_int,
+    ),
+    "sgd_head_step_streamed": (
+        [_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
         ctypes.c_int,
     ),
     "sgd_coo_tail_forward": ([_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P, _P, _P], ctypes.c_int),

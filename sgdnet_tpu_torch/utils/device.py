@@ -32,16 +32,22 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def card_line() -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (a card
+    may be set below its maximum power and then runs slower); raises where
+    nvidia-smi cannot read them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def describe(dev: torch.device) -> str:
-    """The device a measurement ran on: for the card, its name and power
-    limit as `nvidia-smi --query-gpu=name,power.limit` prints them (a card
-    may be set below its maximum power and then runs slower); else the
-    device's name."""
+    """The device a measurement ran on: for the card, `card_line()`; else
+    the device's name."""
     if dev.type != "cuda":
         return str(dev)
     try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, check=True)
-        return out.stdout.strip().splitlines()[0]
+        return card_line()
     except (OSError, subprocess.CalledProcessError, IndexError):
         return f"{torch.cuda.get_device_name(dev)}, power limit not read"

@@ -33,6 +33,7 @@ from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver import head_kernel as hk
 from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.solver.saga import SagaState
+from sgdnet_tpu_torch.tools import bench_head_streamed as bhs
 from sgdnet_tpu_torch.tools import probe_kernels as pk
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +105,21 @@ def test_head_kernel_at_128_classes(dev, dtype, D):
     B = 1032 if D < 16384 else 1024
     assert hk.plan(B, D, 128, dtype).resident is (D < 16384)
     _head_check(_head_args(dev, "multinomial", 128, dtype, 2 * B, B, D, B, D), dtype)
+
+
+@pytest.mark.parametrize("case", bhs.CASES, ids=lambda c: f"{c[0]}-{str(c[5])[6:]}-D{c[3]}-k{c[4]}-B{c[2]}")
+def test_head_streamed_matches_twin(dev, case):
+    """K2's streamed design at chip_smoke.py phase 3's shapes (k just past
+    the resident limit at D 16384, slice M's 53 classes, MAX_K, an
+    elementwise family, CIFAR-100's f32 shape, rows only 4-byte aligned,
+    a B only 8 divides; launched through its own plan where `plan` keeps
+    the shape resident): `run_shape` raises where it disagrees with its
+    twin beyond its bounds (tools/bench_head_streamed.py), gives other
+    bits on a second launch, or
+    a profile misses one of its three kernels."""
+    before = hk.fused_head_step_at.launches
+    r = bhs.run_shape(dev, 0, *case, timed=False)
+    assert "kp" in r["plan"] and hk.fused_head_step_at.launches > before  # a StreamPlan launched
 
 
 def test_head_kernel_rejects_what_it_does_not_take(dev):

@@ -76,7 +76,8 @@ def _head_case(family, k, seed, n_pad=256, B=128, D=256):
 @pytest.mark.parametrize("kp_lanes", [8, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("start", [0, 128])
-@pytest.mark.parametrize("family,k", [("gaussian", 1), ("binomial", 1), ("multinomial", 3), ("mgaussian", 2)])
+@pytest.mark.parametrize("family,k", [("gaussian", 1), ("binomial", 1), ("multinomial", 3), ("mgaussian", 2),
+                                      ("multinomial", 53), ("multinomial", 128)])
 def test_head_twin_matches_pallas(family, k, start, dtype, kp_lanes):
     B = 128
     head, w, lpe, y, gm, wb = _head_case(family, k, seed=k)
@@ -106,14 +107,38 @@ def test_head_wrapper_on_cpu_is_the_twin():
     assert hk.fused_head_step_at.launches == before  # the twin never counts as a launch
 
 
+#: the streamed design's tiles by item size: (BK columns of an lp stage, BR rows of a corr stage, row padding)
+STREAM_TILES = {2: (64, 64, 8), 4: (32, 32, 4)}
+
+
+def _stream_plan_ok(p, B, D, k, dtype, max_ctas=hk.N_SM):
+    """A StreamPlan: classes padded to the mma's 16, tiles and strips that
+    cover B and D, clusters of 1-8 CTAs with no CTA left without columns
+    (lp) or rows (corr), one wave of `max_ctas` CTAs unless the clusters
+    are single CTAs, each kernel's shared memory within a CTA's, and a
+    scratch of w rounded and gc alone (no partial corr)."""
+    es = dtype.itemsize
+    bk, br, pad = STREAM_TILES[es]
+    assert p.kp % 16 == 0 and k <= p.kp < k + 16
+    assert p.tiles * 128 >= B > (p.tiles - 1) * 128 and p.strips * 128 >= D > (p.strips - 1) * 128
+    assert p.n_kc * bk >= D > (p.n_kc - 1) * bk
+    assert p.C in (1, 2, 4, 8) and p.C <= p.n_kc and (p.C == 1 or p.tiles * p.C <= max_ctas)
+    assert p.R in (1, 2, 4, 8) and p.R <= p.tiles * 128 // br and (p.R == 1 or p.strips * p.R <= max_ctas)
+    ring = 4 * (128 + p.kp) * (bk + pad) * es  # 4 stages of a 128 x BK head chunk and a kp x BK w chunk
+    assert ring >= 4 * 128 * p.kp and p.smem == ring + 4 * (128 // p.C) * p.kp  # the lp part fits the drained ring
+    ring2 = 4 * br * (128 + pad + p.kp + pad) * es  # 4 stages of a BR x 128 head chunk and a BR x kp gc chunk
+    assert ring2 >= 4 * p.kp * 128 and p.smem2 == ring2
+    assert max(p.smem, p.smem2) <= hk.SMEM_LIMIT
+
+
 def _plan_ok(p, B, D, k, dtype):
+    if not p.resident:
+        _stream_plan_ok(p, B, D, k, dtype)
+        return
     es = dtype.itemsize
     ve = 16 // es
     assert p.smem <= hk.SMEM_LIMIT == 232448 and B % p.bt == 0 and p.bt in (8, 16, 32)
     n_tiles = B // p.bt
-    if not p.resident:  # the streamed tile kernel: a partial per tile, lp and gc in shared memory
-        assert (p.n_parts, p.smem) == (n_tiles, 8 * p.bt * k)
-        return
     assert p.C in (1, 2, 4, 8) and p.W % ve == 0
     assert p.C * p.W >= D > (p.C - 1) * p.W  # C strips tile D, none empty
     assert 1 <= p.S <= min(3, p.tpc)
@@ -155,6 +180,33 @@ def test_head_plan_at_the_paths_shapes():
     assert p.resident and p.single and (p.C, p.W, p.bt, p.tpc) == (1, 784, 16, 1)
     # no cluster of eight holds a 128 x 16384 w: the streamed kernel
     assert not hk.plan(8192, 16384, 128, torch.bfloat16).resident
+
+
+@pytest.mark.parametrize("B,D,k,dtype,want", [
+    (8192, 16384, 53, torch.bfloat16, (64, 2, 256, 1, 64, 128)),  # slice M: 64 tiles x 2, 128 strips
+    (4096, 3072, 100, torch.float32, (112, 4, 96, 4, 32, 24)),  # CIFAR-100: 32 tiles x 4, 24 strips x 4
+    (8192, 16384, 17, torch.bfloat16, (32, 2, 256, 1, 64, 128)),  # just past the resident limit
+    (8192, 16384, 128, torch.bfloat16, (128, 2, 256, 1, 64, 128)),  # MAX_K
+    (1032, 4096, 128, torch.bfloat16, (128, 8, 64, 4, 9, 32)),  # a B only 8 divides: 9 tiles, the last 8 rows
+])
+def test_stream_plan_at_the_many_class_shapes(B, D, k, dtype, want):
+    """The shapes no resident plan holds take the streamed design: its
+    grids fill the card once (at most 132 CTAs), its shared memory fits a
+    CTA, and its scratch (w rounded, gc) is a few MB where the tile
+    kernel's partials, one (k, D) f32 per 32-row tile, were hundreds."""
+    p = hk.plan(B, D, k, dtype)
+    assert not p.resident and not list(hk.resident_plans(B, D, k, dtype))
+    assert (p.kp, p.C, p.n_kc, p.R, p.tiles, p.strips) == want
+    _stream_plan_ok(p, B, D, k, dtype)
+    lp_ctas, corr_ctas = p.ctas
+    assert 64 <= lp_ctas <= hk.N_SM and 64 <= corr_ctas <= hk.N_SM
+    bk = STREAM_TILES[dtype.itemsize][0]
+    scratch = (p.kp * p.n_kc * bk + p.tiles * 128 * p.kp) * dtype.itemsize
+    assert scratch <= 8 * 2**20 and 20 * scratch < (B // 32) * k * D * 4
+    # a card that holds fewer CTAs gets smaller clusters
+    q = hk.plan(B, D, k, dtype, max_ctas=40)
+    _stream_plan_ok(q, B, D, k, dtype, max_ctas=40)
+    assert q.C <= p.C and q.R <= p.R
 
 
 def _round_to(a, dtype):
@@ -243,6 +295,84 @@ def test_head_kernel_order_replayed(family, k, dtype, cut):
         np.testing.assert_allclose(g_r, np.asarray(g_j), atol=1e-5)
         np.testing.assert_allclose(corr_r, np.asarray(corr_j), atol=2e-3)
     else:  # a g next to a rounding boundary of gc moves corr by a bf16 ulp of gc times a head entry
+        np.testing.assert_allclose(g_r, g_t.numpy(), atol=3e-2)
+        np.testing.assert_allclose(corr_r, corr_t.numpy(), atol=2e-2 * scale)
+        np.testing.assert_allclose(g_r, np.asarray(g_j), atol=3e-2)
+        np.testing.assert_allclose(corr_r, np.asarray(corr_j), atol=2e-2 * max(np.abs(np.asarray(corr_j)).max(), 1.0))
+
+
+def _replay_streamed(head, start, w, lpe, yb, gm, wb, family, p, dtype):
+    """The streamed design's sums in its own order, in numpy f32 (within a
+    chunk numpy's order stands in for the mma's or the FMA chain's): a
+    tile's lp, C runs of BK-column chunks, each run's chunks in order, the
+    runs added in rank order, then lp_extra; corr, a strip's R runs of
+    BR-row chunks, each run's chunks in order, the runs added in rank
+    order.  Past B and D the operands are zero, as the kernels fill them."""
+    f32 = np.float32
+    B, k = yb.shape
+    D = head.shape[1]
+    bk, br, _ = STREAM_TILES[dtype.itemsize]
+    rows = p.tiles * 128
+    x = np.zeros((rows, p.n_kc * bk), f32)
+    x[:B, :D] = _round_to(head, dtype)[start:start + B]
+    wq = np.zeros((k, p.n_kc * bk), f32)
+    wq[:, :D] = _round_to(w, dtype)
+    lp = f32(0)
+    for rank in range(p.C):
+        part = np.zeros((rows, k), f32)
+        for kc in range(rank * p.n_kc // p.C, (rank + 1) * p.n_kc // p.C):
+            cols = slice(kc * bk, (kc + 1) * bk)
+            part = part + x[:, cols] @ wq[:, cols].T
+        lp = lp + part
+    lp = lp[:B] + lpe
+    if family == "multinomial":
+        e = np.exp(lp - lp.max(1, keepdims=True))
+        g = e / e.sum(1, keepdims=True) - yb
+    elif family == "binomial":
+        g = 1 / (1 + np.exp(-lp)) - yb
+    else:
+        g = lp - yb
+    g = (g * wb[:, None]).astype(f32)
+    gc = np.zeros((rows, k), f32)
+    gc[:B] = _round_to(g - gm, dtype)
+    n_ch = rows // br
+    corr = f32(0)
+    for rank in range(p.R):
+        part = np.zeros((k, x.shape[1]), f32)
+        for ch in range(rank * n_ch // p.R, (rank + 1) * n_ch // p.R):
+            r = slice(ch * br, (ch + 1) * br)
+            part = part + gc[r].T @ x[r]
+        corr = corr + part
+    return g, corr[:, :D]
+
+
+@pytest.mark.parametrize("cut", [(1, 1), (2, 4), (4, 2)], ids=lambda c: f"C{c[0]}-R{c[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family,k", [("binomial", 1), ("multinomial", 20), ("mgaussian", 3)])
+def test_head_streamed_order_replayed(family, k, dtype, cut):
+    """The streamed design's order (`_replay_streamed`) at lp clusters of C
+    and corr clusters of R, on a head 200 wide (a ragged last chunk and
+    strip) and B 136 (two tiles, the second of 8 rows): against the twin
+    at 1e-5 x scale in f32 (summation order only) and against the Pallas
+    kernel at phase 3's bounds."""
+    B, start, tdt = 136, 64, getattr(torch, dtype)
+    head, w, lpe, y, gm, wb = _head_case(family, k, seed=20 + k, n_pad=256, B=B, D=200)
+    yb, gmb = y[start:start + B], gm[start:start + B]
+    p = hk.stream_plan(B, 200, k, tdt, *cut)
+    _stream_plan_ok(p, B, 200, k, tdt, max_ctas=64)
+    g_r, corr_r = _replay_streamed(head, start, w, lpe, yb, gmb, wb, family, p, tdt)
+    g_t, corr_t = hk.fused_head_step_reference(torch.tensor(head).to(tdt), start, torch.tensor(w), torch.tensor(lpe),
+                                               torch.tensor(yb), torch.tensor(gmb), torch.tensor(wb), family)
+    g_j, corr_j = j_head_step(jnp.asarray(head).astype(getattr(jnp, dtype)), jnp.int32(start), jnp.asarray(w),
+                              jnp.asarray(lpe), jnp.asarray(yb), jnp.asarray(gmb), jnp.asarray(wb), B, family,
+                              interpret=True)
+    scale = max(float(corr_t.abs().max()), 1.0)
+    if dtype == "float32":
+        np.testing.assert_allclose(g_r, g_t.numpy(), atol=1e-5)
+        np.testing.assert_allclose(corr_r, corr_t.numpy(), atol=1e-5 * scale)
+        np.testing.assert_allclose(g_r, np.asarray(g_j), atol=1e-5)
+        np.testing.assert_allclose(corr_r, np.asarray(corr_j), atol=2e-3)
+    else:
         np.testing.assert_allclose(g_r, g_t.numpy(), atol=3e-2)
         np.testing.assert_allclose(corr_r, corr_t.numpy(), atol=2e-2 * scale)
         np.testing.assert_allclose(g_r, np.asarray(g_j), atol=3e-2)
