@@ -1,0 +1,12 @@
+"""K4, the BlockCOO tail's outer sum (csrc/coo_tail.cu), at k 53 in the
+rcv1-multiclass epoch cell: its share of its roofline over the traced
+epochs, %."""
+
+from perfbench import readers
+
+#: K4's kernel, by its name in the trace
+KERNELS = ("coo_outer",)
+
+
+def read(ctx):
+    return readers.tail_outer_share(ctx, KERNELS)
