@@ -27,7 +27,7 @@ from sgdnet_tpu_torch.parallel.dist import pad_to_shards, shard_path_inputs
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel, saga
 from sgdnet_tpu_torch.solver.saga import (
-    PathResults, SagaState, SolverConfig, backoff_path, fit_path, init_state, order_count, uses_head_kernel,
+    PathCounts, PathResults, SagaState, SolverConfig, backoff_path, fit_path, init_state, order_count, uses_head_kernel,
 )
 from sgdnet_tpu_torch.solver.screening import screened_path
 from sgdnet_tpu_torch.solver.stepsize import power_iteration_sq_norm, saga_step_sizes
@@ -70,7 +70,8 @@ class SgdnetFit:
     #: dict under hybrid_max_head="auto" on scipy input, else None), and
     #: under a mesh `mesh` (axis, size, rank, backend) and `allreduces` (the
     #: fit's all-reduces by what they reduce: step, refresh, loss, setup,
-    #: and their total)
+    #: and their total); epochs_by_attempt and host_syncs, the operator
+    #: accounting `fit`'s docstring describes
     stats: dict | None = field(default=None, repr=False)
 
     @property
@@ -552,6 +553,17 @@ def fit(
     `stats["lambda_chunk"]` records the chunks, the starts of those refit
     and the halvings kept.  Under `screen="auto"` it chunks the full-layout
     tail; a mesh fit ignores it, as the JAX package's does.
+
+    Operator accounting, counted where the work happens (fit_path's epoch
+    loops and host reads): `stats["epochs_by_attempt"]` maps (lambda
+    index, attempt) to the epochs that attempt ran (attempt 0, then the
+    halved-step retries; where several fit_path calls fitted one lambda,
+    as a chunk's refits or a screened group's KKT rounds, their epochs
+    add up), and `stats["host_syncs"]` counts fit_path's reads of device
+    values into the host (the step total, each epoch's stop-rule
+    statistics or K1 chunk's, each attempt's objective, each lambda's
+    deviance, debug losses, the path's copy to the host), on the card
+    each a wait for it.
     """
     # ---- keywords ----
     if screen not in (False, True, "auto"):
@@ -852,12 +864,13 @@ def fit(
 
     t0 = time.perf_counter()
     scr_stats = chunk_stats = None
+    counts = PathCounts()
     if screen:
         w_scr, b_scr, dev_scr, it_scr, codes_scr, n_iter, scr_stats = screened_path(
             x, y_proc, weights, gammas, l1s, l2s, thresh, fam, penalty, config, xc=xc, pf=pf_dev, box=box,
             always_inactive=excl_mask, offs=offs_dev,
             intercept0=None if offs_dev is None else b0_offs.cpu().numpy(), auto_full_tail=screen == "auto",
-            full_tail_chunk=lambda_chunk, seed=seed,
+            full_tail_chunk=lambda_chunk, seed=seed, counts=counts,
         )
         state = None
         results = SimpleNamespace(w=w_scr, intercept=b_scr, deviance=dev_scr, return_codes=codes_scr,
@@ -868,13 +881,13 @@ def fit(
         def fit_chunk(lo, hi, st, gmul, try_):
             return fit_path(x, y_proc, weights, gammas[lo:hi] * gmul, l1s[lo:hi], l2s[lo:hi], thresh, st, fam,
                             penalty, config, offs=offs_dev, pf=pf_dev, box=box, xc=xc,
-                            order_fn=saga.default_order_fn(seed, n_orders, lo + 1000 * try_))
+                            order_fn=saga.default_order_fn(seed, n_orders, lo + 1000 * try_), counts=counts, lam0=lo)
 
         state, n_iter, results, chunk_stats = _chunked_path(fit_chunk, state0, len(l1s), lambda_chunk, thresh)
     else:
         state, n_iter, results = fit_path(
             x, y_proc, weights, gammas, l1s, l2s, thresh, state0, fam, penalty, config,
-            offs=offs_dev, pf=pf_dev, box=box, seed=seed, xc=xc,
+            offs=offs_dev, pf=pf_dev, box=box, seed=seed, xc=xc, counts=counts,
         )
     wall = time.perf_counter() - t0  # fit_path returns host arrays: synced
 
@@ -898,6 +911,8 @@ def fit(
         "tail_kernel": scr_stats["tail_kernel"] if screen else (isinstance(x, HybridCSR) and x.blk_tail is not None
                                                                 and use_tail_kernel),
         "layout_plan": None if layout_plan is None else asdict(layout_plan),
+        "epochs_by_attempt": counts.epochs_by_attempt,
+        "host_syncs": counts.host_syncs,
     }
     if chunk_stats is not None:
         stats["lambda_chunk"] = {k: v for k, v in chunk_stats.items() if k != "epoch_chunks"}

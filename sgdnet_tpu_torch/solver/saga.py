@@ -43,7 +43,7 @@ folds the axis index into the epoch key).
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -54,6 +54,7 @@ from sgdnet_tpu_torch.families.families import Family
 from sgdnet_tpu_torch.penalties.penalties import Penalty
 from sgdnet_tpu_torch.solver import epoch_kernel as ek
 from sgdnet_tpu_torch.solver import head_kernel, tail_kernel
+from sgdnet_tpu_torch.utils import profiling
 
 
 class SagaState(NamedTuple):
@@ -326,33 +327,35 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     def step_pallas(state: SagaState, scal: _Scalars, sel):
         # K2 takes the FULL head and the block start, and lp_extra carries
         # everything but the head's product: the tail forward, the
-        # intercept, the offsets and the centering term
-        yb = _rows(y, sel, B)
-        wb = _rows(weights, sel, B)
-        g_mem_b = _rows(state.g_mem, sel, B)
+        # intercept, the offsets and the centering term (a block's rows
+        # are views: slicing launches nothing)
         offs_b = None if offs is None else _rows(offs, sel, B)
-        if hybrid:
-            d = x.n_head
-            lp_extra = _tail_predict(x, state.w, sel, B, kernels, fwd, intercept=state.intercept, offs=offs_b)
-            head, w_head = x.head, state.w[:, :d]
-        else:
-            lp_extra = state.intercept.expand(B, family.n_classes)
-            head, w_head = x, state.w
-            if offs_b is not None:
-                lp_extra = lp_extra + offs_b
-        if xc is not None:
-            lp_extra = lp_extra - state.w @ xc.to(state.w.dtype)
-        g, corr_head = head_kernel.fused_head_step_at(head, sel, w_head, lp_extra, yb, g_mem_b, wb, family.name)
-        g = g.to(state.w.dtype)
-        g_change = g - g_mem_b
-        _set_rows(state.g_mem, sel, g, B)
-        if hybrid:
-            corr = _tail_outer(x, g_change, sel, B, kernels)
-            corr[:, :d] += corr_head.to(corr.dtype)
-            if xc is not None:  # xc is zero on head columns
-                corr = corr - torch.outer(torch.sum(g_change, dim=0), xc.to(corr.dtype))
-        else:
-            corr = corr_head.to(state.w.dtype)
+        with profiling.span("sgdnet.step.tail_forward"):
+            if hybrid:
+                lp_extra = _tail_predict(x, state.w, sel, B, kernels, fwd, intercept=state.intercept, offs=offs_b)
+            else:
+                lp_extra = state.intercept.expand(B, family.n_classes)
+                if offs_b is not None:
+                    lp_extra = lp_extra + offs_b
+            if xc is not None:
+                lp_extra = lp_extra - state.w @ xc.to(state.w.dtype)
+        with profiling.span("sgdnet.step.head"):
+            yb = _rows(y, sel, B)
+            wb = _rows(weights, sel, B)
+            g_mem_b = _rows(state.g_mem, sel, B)
+            head, w_head = (x.head, state.w[:, : x.n_head]) if hybrid else (x, state.w)
+            g, corr_head = head_kernel.fused_head_step_at(head, sel, w_head, lp_extra, yb, g_mem_b, wb, family.name)
+            g = g.to(state.w.dtype)
+            g_change = g - g_mem_b
+            _set_rows(state.g_mem, sel, g, B)
+        with profiling.span("sgdnet.step.tail_outer"):
+            if hybrid:
+                corr = _tail_outer(x, g_change, sel, B, kernels)
+                corr[:, : x.n_head] += corr_head.to(corr.dtype)
+                if xc is not None:  # xc is zero on head columns
+                    corr = corr - torch.outer(torch.sum(g_change, dim=0), xc.to(corr.dtype))
+            else:
+                corr = corr_head.to(state.w.dtype)
         return _finish_step(state, scal, wb, g_change, corr)
 
     def step_xla(state: SagaState, scal: _Scalars, sel):
@@ -367,38 +370,39 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         return _finish_step(state, scal, wb, g_change, corr)
 
     def _finish_step(state: SagaState, scal: _Scalars, wb, g_change, corr):
-        if mesh is None:
-            bw = torch.clamp(torch.sum(wb), min=1e-12)
-            sum_gc = torch.sum(g_change, dim=0)  # (k,)
-        else:
-            torch.sum(wb, dim=0, out=red_bw)
-            torch.sum(g_change, dim=0, out=red_gc)
-            red_corr.copy_(corr)
-            mesh.all_reduce(red, "step")
-            bw, sum_gc, corr = torch.clamp(red_bw, min=1e-12), red_gc, red_corr
-        grad_est = corr / bw + state.g_sum
-        # per-feature penalty factors scale both the L2 decay and the prox
-        # threshold (glmnet `penalty.factor`); pf is (p,), broadcast over k
-        if pf is None:
-            w_half = state.w * scal.shrink - scal.gamma * grad_est
-            w_new = penalty.prox(w_half, scal.gl1)
-        else:
-            w_half = state.w * (1.0 - scal.gl2 * pf) - scal.gamma * grad_est
-            w_new = penalty.prox(w_half, scal.gl1 * pf)
-        if box is not None:
-            # box constraints: project onto [lo, hi] after the prox
-            w_new = torch.minimum(torch.maximum(w_new, box[0]), box[1])
-        g_sum = state.g_sum + corr / w_total
-        if config.fit_intercept:
-            # intercept step with the same SAGA estimator: fresh batch-mean
-            # gradient change + stale average
-            grad_est_b = sum_gc / bw + state.g_sum_intercept
-            intercept = state.intercept - scal.gdecay * grad_est_b
-            g_sum_i = state.g_sum_intercept + sum_gc / w_total
-        else:
-            intercept = state.intercept
-            g_sum_i = state.g_sum_intercept
-        return SagaState(w_new, intercept, state.g_mem, g_sum, g_sum_i)
+        with profiling.span("sgdnet.step.finish"):
+            if mesh is None:
+                bw = torch.clamp(torch.sum(wb), min=1e-12)
+                sum_gc = torch.sum(g_change, dim=0)  # (k,)
+            else:
+                torch.sum(wb, dim=0, out=red_bw)
+                torch.sum(g_change, dim=0, out=red_gc)
+                red_corr.copy_(corr)
+                mesh.all_reduce(red, "step")
+                bw, sum_gc, corr = torch.clamp(red_bw, min=1e-12), red_gc, red_corr
+            grad_est = corr / bw + state.g_sum
+            # per-feature penalty factors scale both the L2 decay and the prox
+            # threshold (glmnet `penalty.factor`); pf is (p,), broadcast over k
+            if pf is None:
+                w_half = state.w * scal.shrink - scal.gamma * grad_est
+                w_new = penalty.prox(w_half, scal.gl1)
+            else:
+                w_half = state.w * (1.0 - scal.gl2 * pf) - scal.gamma * grad_est
+                w_new = penalty.prox(w_half, scal.gl1 * pf)
+            if box is not None:
+                # box constraints: project onto [lo, hi] after the prox
+                w_new = torch.minimum(torch.maximum(w_new, box[0]), box[1])
+            g_sum = state.g_sum + corr / w_total
+            if config.fit_intercept:
+                # intercept step with the same SAGA estimator: fresh batch-mean
+                # gradient change + stale average
+                grad_est_b = sum_gc / bw + state.g_sum_intercept
+                intercept = state.intercept - scal.gdecay * grad_est_b
+                g_sum_i = state.g_sum_intercept + sum_gc / w_total
+            else:
+                intercept = state.intercept
+                g_sum_i = state.g_sum_intercept
+            return SagaState(w_new, intercept, state.g_mem, g_sum, g_sum_i)
 
     step = step_pallas if uses_head_kernel(x, family, config) else step_xla
     #: the bound K3 launcher (None off the card's BlockCOO path): the epoch
@@ -410,19 +414,20 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
 def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None, mesh=None) -> SagaState:
     """Exact recompute g_sum = (1/W) X_eff^T g_mem (one pass over x); under
     a mesh the ranks' [g_sum, col_sum] are summed by one all-reduce."""
-    if isinstance(x, (PaddedCSR, HybridCSR)):
-        g_sum = x.matvec_T(state.g_mem).T.contiguous() / w_total
-    else:
-        g_sum = (state.g_mem.T @ x) / w_total
-    col_sum = torch.sum(state.g_mem, dim=0)
-    if xc is not None:
-        g_sum = g_sum - torch.outer(col_sum, xc.to(g_sum.dtype)) / w_total
-    if mesh is not None:
-        k, p = g_sum.shape
-        buf = torch.cat([g_sum.reshape(-1), col_sum])
-        mesh.all_reduce(buf, "refresh")
-        g_sum, col_sum = buf[: k * p].view(k, p), buf[k * p :]
-    return state._replace(g_sum=g_sum, g_sum_intercept=col_sum / w_total)
+    with profiling.span("sgdnet.refresh", device=state.g_mem.device):
+        if isinstance(x, (PaddedCSR, HybridCSR)):
+            g_sum = x.matvec_T(state.g_mem).T.contiguous() / w_total
+        else:
+            g_sum = (state.g_mem.T @ x) / w_total
+        col_sum = torch.sum(state.g_mem, dim=0)
+        if xc is not None:
+            g_sum = g_sum - torch.outer(col_sum, xc.to(g_sum.dtype)) / w_total
+        if mesh is not None:
+            k, p = g_sum.shape
+            buf = torch.cat([g_sum.reshape(-1), col_sum])
+            mesh.all_reduce(buf, "refresh")
+            g_sum, col_sum = buf[: k * p].view(k, p), buf[k * p :]
+        return state._replace(g_sum=g_sum, g_sum_intercept=col_sum / w_total)
 
 
 def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverConfig, offs=None, pf=None, box=None,
@@ -437,21 +442,23 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
     dt = np_dtype(y.dtype)
 
     def epoch(state: SagaState, order, gamma, l1, l2, it=None) -> SagaState:
-        scal = _scalars(gamma, l1, l2, config.intercept_decay, dt)
-        state = state._replace(g_mem=state.g_mem.clone())
-        if step.tail_forward is not None:
-            step.tail_forward.refresh_stream()
-        if config.sampling == "block":
-            # contiguous blocks in random order (rows pre-shuffled by fit())
-            sels = [int(s) * B for s in order.tolist()]
-        else:
-            idx = order.to(y.device).reshape(n_batches, B)
-            sels = list(idx)
-        for sel in sels:
-            state = step(state, scal, sel)
-        if config.g_sum_refresh and (every <= 1 or it is None or (it + 1) % every == 0):
-            state = _refresh_g_sum(x, w_total, state, xc, config.mesh)
-        return state
+        with profiling.span("sgdnet.epoch", epoch=it):
+            scal = _scalars(gamma, l1, l2, config.intercept_decay, dt)
+            state = state._replace(g_mem=state.g_mem.clone())
+            if step.tail_forward is not None:
+                step.tail_forward.refresh_stream()
+            if config.sampling == "block":
+                # contiguous blocks in random order (rows pre-shuffled by fit())
+                sels = [int(s) * B for s in order.tolist()]
+            else:
+                idx = order.to(y.device).reshape(n_batches, B)
+                sels = list(idx)
+            for sel in sels:
+                with profiling.span("sgdnet.step"):
+                    state = step(state, scal, sel)
+            if config.g_sum_refresh and (every <= 1 or it is None or (it + 1) % every == 0):
+                state = _refresh_g_sum(x, w_total, state, xc, config.mesh)
+            return state
 
     return epoch
 
@@ -473,6 +480,16 @@ class PathResults(NamedTuple):
     final_change: np.ndarray  # (n_lambda,)
     #: K1 launches (chunks of epochs) over all attempts; 0 off the K1 path
     n_chunks: np.ndarray  # (n_lambda,) int32
+
+
+@dataclass
+class PathCounts:
+    """Operator accounting summed over the fit_path calls given this object
+    (fit's `stats`): the epochs each (lambda index along the whole path,
+    attempt) ran, and the host's reads of device values."""
+
+    epochs_by_attempt: dict = field(default_factory=dict)
+    host_syncs: int = 0
 
 
 def order_count(config: SolverConfig, n_pad: int) -> int:
@@ -529,6 +546,8 @@ def fit_path(
     seed: int = 0,
     order_fn=None,
     xc=None,
+    counts: PathCounts | None = None,
+    lam0: int = 0,
 ):
     """Fit the whole lambda path with warm starts.
 
@@ -538,15 +557,17 @@ def fit_path(
     of the JAX package.  `gammas`, `l1s`, `l2s` are per-lambda sequences
     and `tol` a scalar; they are rounded to the fit's dtype (y's).  `x` is
     dense, a PaddedCSR or a HybridCSR, with `xc` its centering term.
+    `counts` (a PathCounts) adds this call's epochs and host reads, its
+    lambdas indexed from `lam0`.
     Returns (final state, total epochs, PathResults of numpy arrays).
     """
     with _fp32_matmul():
         return _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty, config,
-                              offs, pf, box, seed, order_fn, xc)
+                              offs, pf, box, seed, order_fn, xc, PathCounts() if counts is None else counts, lam0)
 
 
 def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty, config, offs, pf, box,
-                   seed, order_fn, xc):
+                   seed, order_fn, xc, counts, lam0):
     dt = np_dtype(y.dtype)
     gammas = np.asarray(gammas, dt).reshape(-1)
     l1s = np.asarray(l1s, dt).reshape(-1)
@@ -560,6 +581,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
     if mesh is not None:
         mesh.all_reduce(w_sum, "setup")
     w_total = float(torch.clamp(w_sum, min=1e-12))
+    counts.host_syncs += 1
     k, p = state0.w.shape
     if order_fn is None:
         n_orders = order_count(config, n_pad)
@@ -585,6 +607,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
 
     def _loss(st):
         s = unpad(st)
+        counts.host_syncs += 1
         return float(_dataset_loss(x, y, weights, s.w, s.intercept, family, offs=offs, xc=xc,
                                    kernels=config.use_tail_kernel, mesh=mesh)) / w_total
 
@@ -614,6 +637,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
             if it + n < max_iter:
                 orders = draw(it + n, min(size, max_iter - it - n))
             ran, max_change, max_size, finite = stats.tolist()
+            counts.host_syncs += 1
             done, rel = ek.stop_rule(max_change, max_size, finite == 1.0, t_conv, dt)
             if ran < n and not done:
                 # the next orders were drawn for epoch it + n onwards
@@ -632,6 +656,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         while not done and it < max_iter:
             state = epoch_fn(state, order_fn(lam_idx, attempt, it), gamma, l1, l2, it=it)
             max_change, max_size, finite = ek.epoch_stats(state.w, w_prev, state.intercept)
+            counts.host_syncs += 1
             # divergence guard: a non-finite epoch is terminal; report it as
             # not converged (final_change = inf), never as converged
             done, rel = ek.stop_rule(max_change, max_size, finite == 1.0, t_conv, dt)
@@ -646,6 +671,8 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         # so retries pass tol scaled by their step multiplier
         run = fit_one_chunks if config.use_epoch_kernel else fit_one_epochs
         state, it, losses, rel = run(state, gamma, l1, l2, lam_idx, attempt, t_conv)
+        key = (lam0 + lam_idx, attempt)
+        counts.epochs_by_attempt[key] = counts.epochs_by_attempt.get(key, 0) + it
         if np.isinf(rel):  # a divergence exit must read as NOT converged
             it = max_iter
         return state, it, losses, rel
@@ -689,6 +716,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
             code_new = it_new >= max_iter
             lm_new = _lmean(state_new)
             obj_new = dt(float(_objective(state_new, lm_new, l1, l2)))
+            counts.host_syncs += 1
             if not np.isfinite(obj_new):  # a diverged attempt never wins
                 obj_new = dt(np.inf)
             better = obj_new < best["obj"]
@@ -716,8 +744,10 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
             # every attempt diverged: the finite warm start is kept, with an
             # inf solver deviance
             dev_solver = np.inf if best["lm"] is None else float(2.0 * w_total * best["lm"])
+            counts.host_syncs += best["lm"] is not None
             if track_clamp_gap:
                 dev = float(_dev(state))  # exact reporting deviance (poisson)
+                counts.host_syncs += 1
                 gap = dev - dev_solver
             else:
                 dev, gap = dev_solver, 0.0
@@ -727,6 +757,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
             dev = _dev(state)
             att_it = it
             gap = float(dev - _dev(state, report=False)) if track_clamp_gap else 0.0
+            counts.host_syncs += 1 + track_clamp_gap  # the gap's read, and the deviance's below
         s_real = unpad(state)
         outs["w"].append(s_real.w)
         outs["intercept"].append(s_real.intercept)
@@ -739,6 +770,7 @@ def _fit_path_impl(x, y, weights, gammas, l1s, l2s, tol, state0, family, penalty
         outs["n_chunks"].append(n_chunks[0] - chunks_before)
         n_iter += att_it
 
+    counts.host_syncs += 2  # the path's coefficients and intercepts
     results = PathResults(
         w=torch.stack(outs["w"]).cpu().numpy(),
         intercept=torch.stack(outs["intercept"]).cpu().numpy(),

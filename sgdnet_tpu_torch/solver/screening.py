@@ -138,6 +138,7 @@ def screened_path(
     auto_full_tail: bool = False,
     full_tail_chunk: int | None = None,
     seed: int = 0,
+    counts=None,  # a saga.PathCounts that adds every fit_path call's epochs and host reads
 ):
     """Strong-rule screened warm-started path.  Returns (w_path (nl, k, p),
     intercept_path (nl, k), deviance (nl,), n_epochs (nl,), return_codes,
@@ -230,7 +231,7 @@ def screened_path(
         ran_tail |= isinstance(x_fit, HybridCSR) and x_fit.blk_tail is not None and config.use_tail_kernel
         return fit_path(x_fit, y, weights, gammas_np[li:hi] * gmul, l1s_np[li:hi], l2s_np[li:hi], tol, state0,
                         family, penalty, config, offs=offs, pf=pf_fit, box=box_fit, xc=xc_fit,
-                        order_fn=saga.default_order_fn(seed, n_orders, salt))
+                        order_fn=saga.default_order_fn(seed, n_orders, salt), counts=counts, lam0=li)
 
     li = 0
     while li < nl:

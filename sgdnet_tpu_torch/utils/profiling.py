@@ -4,17 +4,115 @@ torch.profiler, and the device-time readings the port's tools share.
 `trace(log_dir)` profiles the CPU and the card and writes a Chrome trace
 into `log_dir`; `time_fn` measures the steady-state wall time of a call,
 waiting for the card when its output holds CUDA tensors.
+
+`span(name)` marks a layer of the program (the solver's epoch, a step's
+phases, the g_sum refresh).  While a torch.profiler profile runs (so
+under `trace()`), a span enters `record_function(name)`, which puts it in
+the profile beside the device's operations, and keeps a record in memory
+(`span_records()`): its name, its enclosing span's name, the epoch it
+belongs to, and its start and end on `time.time_ns()`, the clock of the
+profile's events; a span given the device its work runs on also times
+that work with a pair of CUDA events.  With no profile running a span
+costs one `torch.autograd._profiler_enabled()` check and records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
 
 TRACE_FILE = "trace.json"
+#: the most span records kept; later spans still reach the profile, but
+#: keep no record until `reset_spans()`
+MAX_SPANS = 1 << 16
+
+
+class SpanRecord(NamedTuple):
+    """One span: times in ns on `time.time_ns()`'s clock; `device_ms` the
+    CUDA events' time between its entry and exit (None without a CUDA
+    device, or while the card has not reached the exit)."""
+
+    name: str
+    parent: str | None  # the enclosing span's name
+    epoch: int | None  # the epoch it belongs to: its own, else its parent's
+    start_ns: int
+    end_ns: int | None  # None while the span is open
+    device_ms: float | None
+
+
+_OFF = contextlib.nullcontext()
+_records: list = []  # [name, parent, epoch, start_ns, end_ns, device_ms, events]
+_open = threading.local()  # .stack: this thread's open spans, innermost last
+
+
+class _Span:
+    __slots__ = ("rec", "fn", "events")
+
+    def __init__(self, name: str, epoch, device):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent = stack[-1] if stack else None
+        if epoch is None and parent is not None:
+            epoch = parent[2]
+        self.rec = [name, None if parent is None else parent[0], epoch, 0, None, None, None]
+        self.fn = torch.profiler.record_function(name)
+        self.events = None
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), stream)
+
+    def __enter__(self):
+        rec = self.rec
+        _open.stack.append(rec)
+        if len(_records) < MAX_SPANS:
+            _records.append(rec)
+        rec[3] = time.time_ns()
+        self.fn.__enter__()
+        if self.events is not None:
+            self.events[0].record(self.events[2])
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(self.events[2])
+            self.rec[6] = self.events[:2]
+        self.fn.__exit__(*exc)
+        self.rec[4] = time.time_ns()
+        _open.stack.pop()
+        return False
+
+
+def span(name: str, *, epoch: int | None = None, device=None):
+    """A context manager marking one layer's work: with a profile running,
+    a `record_function(name)` and a record (see the module's docstring),
+    `device` the torch.device the work runs on (CUDA: its time by events
+    on the current stream); else a shared no-op."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, epoch, device)
+
+
+def span_records() -> list:
+    """The spans recorded since the last `reset_spans()`, in the order they
+    were entered (at most MAX_SPANS), as SpanRecords; a device time is
+    read once the card has passed the span's exit."""
+    out = []
+    for rec in _records:
+        if rec[6] is not None and rec[6][1].query():
+            rec[5], rec[6] = rec[6][0].elapsed_time(rec[6][1]), None
+        out.append(SpanRecord(*rec[:6]))
+    return out
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans."""
+    _records.clear()
 
 
 @contextlib.contextmanager
