@@ -65,6 +65,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      on plain torch ops on the first 5 lambdas; its K3 launches, walls, and
      the step it built run
      for one epoch (ms a step, kernel launches a step under torch.profiler);
+     then K5 (the g_sum refresh's tail sum) at k 1 on the tail the fit
+     packed, against its twin and the padded tail's `matvec_T` (the
+     scatter it replaced; 1e-5 relative, the same bits over two launches),
+     its time a call, on the device, the twin, the scatter,
+     torch.sparse.mm and the bound;
  9b. slice M: slice C's design with 53 classes (LIBSVM rcv1.multiclass's
      count) drawn from a seeded softmax model over head and tail columns
      (tools/profile_sparse_slices.py `make_sparse_multiclass_labels`),
@@ -74,7 +79,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      through K2 (streamed) + K3 + K4 at k 53, K3 (with and without its
      epilogue) and K4 at k 53 against their plain versions on every block
      of the tail the fit packed (1e-5 relative, the same bits over two
-     runs), the fit held per lambda by penalized objective against the
+     runs), K5 at k 53 on that tail as in phase 9, the fit held per lambda by penalized objective against the
      same fit on plain torch ops on the first 2 lambdas (1e-4 relative),
      with its walls, epochs, nnz/s, peak
      device memory, the step's profile and the streamed kernels in the
@@ -962,6 +967,67 @@ def phase_tail(rng, dev, csr, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 9 and 9b: K5 against its twin and the scatter it replaced
+# ---------------------------------------------------------------------------
+
+
+def phase_k5(x, k, fit_launches, seed, dev, what, card) -> dict:
+    """K5 on the BlockCOO tail a fit packed (its own x), at k classes in
+    f32, on a g drawn from its own seed so that the other phases' draws
+    stay as they were: within 1e-5 relative (the worst error over the
+    largest of the reference) of its twin and of the padded tail's
+    `matvec_T`, the scatter the refresh ran before, and the same bits from
+    two launches;
+    then a call (CUDA events), device time, the twin, the scatter,
+    torch.sparse.mm of the tail's transpose (its true entries), and the
+    bound: g, each true entry's row and value, col_seg and the output once
+    each; 2 flops an entry and class."""
+    import scipy.sparse as sp
+
+    from sgdnet_tpu_torch.solver import tail_kernel as tk
+
+    bt, tail = x.blk_tail, x.tail
+    n_pad, p = bt.n_blocks * bt.batch, bt.n_cols
+    check(fit_launches > 0, f"{what}'s fit ran no K5: its refreshes did not take the BlockCOO route")
+    g = np.random.default_rng(seed + k).standard_normal((n_pad, k), dtype=np.float32)
+    g = torch.as_tensor(g, device=dev)
+    before = tk.coo_tail_sum.launches
+    out, again = tk.coo_tail_sum(bt, g), tk.coo_tail_sum(bt, g)
+    check(tk.coo_tail_sum.launches == before + 2, f"K5 ({what}): not one launch a call")
+    same = torch.equal(out, again)
+    worst_rel = worst_err = 0.0
+    for name, ref in (("twin", tk.coo_tail_sum_reference(bt, g)), ("padded tail's matvec_T", tail.matvec_T(g))):
+        err = float((out - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        check(rel <= 1e-5, f"K5 disagrees with its {name} ({what}, k {k}): rel {rel:.3e}")
+        worst_rel, worst_err = max(worst_rel, rel), max(worst_err, err)
+    check(same, f"K5 gave different bits in two launches ({what}, k {k})")
+    counts = bt.counts.cpu().numpy()
+    nnz = int(counts.sum())
+    live = np.arange(bt.rows.shape[1])[None] < counts[:, None]
+    rows = (np.arange(bt.n_blocks)[:, None] * bt.batch + bt.rows.cpu().numpy())[live]
+    at = sp.csr_matrix((bt.vals.cpu().numpy()[live], (bt.cols.cpu().numpy()[live], rows)), shape=(p, n_pad))
+    at_t = torch.sparse_csr_tensor(torch.as_tensor(at.indptr), torch.as_tensor(at.indices),
+                                   torch.as_tensor(at.data), size=at.shape, device=dev)
+    r = {"k": k, "blocks": bt.n_blocks, "true_entries": nnz, "fit_launches": fit_launches,
+         "ms": cuda_ms(lambda: tk.coo_tail_sum(bt, g), 50),
+         "device_ms": device_ms(lambda: tk.coo_tail_sum(bt, g), 20, ("coo_tail_sum",)),
+         "plain_ms": cuda_ms(lambda: tk.coo_tail_sum_reference(bt, g), 5),
+         "scatter_ms": cuda_ms(lambda: tail.matvec_T(g), 5),
+         "library_ms": cuda_ms(lambda: torch.sparse.mm(at_t, g), 20),
+         **roofline(4 * n_pad * k + 8 * nnz + 4 * bt.n_blocks * (p + 1) + 4 * p * k, 2 * nnz * k, F32_FLOPS),
+         "max_rel_err": worst_rel, "max_abs_err": worst_err}
+    check(r["device_ms"] is not None, "the profile shows no coo_tail_sum kernel: no K5 device time measured")
+    print(f"  K5 on {what}'s tail as the fit packed it ({bt.n_blocks} blocks of {bt.batch} rows, p {p}, {nnz} true "
+          f"entries, k {k}, f32): vs its twin and the padded tail's matvec_T worst rel err {worst_rel:.3e} (bound "
+          f"1e-5), bits identical over two launches; the fit's K5 launches {fit_launches}")
+    print(f"    K5 tail sum: {r['ms']:.4f} ms a call, {_fmt(r['device_ms'])} on the device; twin {r['plain_ms']:.4f} "
+          f"ms, the scatter it replaced {r['scatter_ms']:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}) [{card}]")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 8: K2 at slice C's width
 # ---------------------------------------------------------------------------
 
@@ -1035,7 +1101,7 @@ def _wrappers() -> dict:
     from sgdnet_tpu_torch.tools import probe_kernels as pk
 
     return {"K1": ek.saga_epochs, "K2": hk.fused_head_step_at, "K3": tk.coo_tail_forward, "K4": tk.coo_tail_outer,
-            "P1": pk.epoch_probe, "P2": pk.block_colsum, "P3": pk.block_colsum_pipelined}
+            "K5": tk.coo_tail_sum, "P1": pk.epoch_probe, "P2": pk.block_colsum, "P3": pk.block_colsum_pipelined}
 
 
 def _reset_launches():
@@ -1230,6 +1296,8 @@ def phase_slice_m(csr, sd, rng, dev, seed, card, launches) -> tuple:
           f"k {k}, f32, with and without its epilogue, K4 at k {k}: worst rel err {tail_rel:.3e} (bound 1e-5), "
           f"bits identical over two runs {since()}")
     bt = None
+    k5 = phase_k5(step[1], k, n["K5"], seed, dev, "slice M", card)
+    torch.cuda.empty_cache()
     sp_ = step_profile(*step, dev)
     step = None
     print(f"  slice M step (one epoch of its {sp_['steps']} blocks, the fit's own step): {sp_['ms_per_step']:.4f} ms "
@@ -1264,7 +1332,7 @@ def phase_slice_m(csr, sd, rng, dev, seed, card, launches) -> tuple:
            "plain_wall_s": wall_p, "plain_lambdas": fp.n_lambda, "plain_path_s": fp.stats["wall_time_s"],
            "plain_epochs": fp.npasses, "plain_peak_bytes": peak_p, "objective_max_rel_diff": rel,
            "class_rows": [int(counts.min()), int(counts.max())], "tail_max_abs_err": tail_err,
-           "tail_max_rel_err": tail_rel}
+           "tail_max_rel_err": tail_rel, "k5": k5}
     return out
 
 
@@ -2663,6 +2731,7 @@ def main(argv=None) -> int:
     slice_c = check_sparse_slice("C", fit_c, wall_c, peak_c, launches["C"], step_c, csr, y_sp, sd, dev, args.seed,
                                  SLICE_C, card, plain_lambdas=5)
     lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
+    k5_c = phase_k5(step_c[1], 1, launches["C"]["K5"], args.seed, dev, "slice C", card)
     fit_c = step_c = None
     torch.cuda.empty_cache()
     phase("phase 9b: slice M (53 classes on slice C's design: K2's streamed design + K3 + K4), with the launch "
@@ -2787,6 +2856,9 @@ def main(argv=None) -> int:
          **by_path("K3", tail_paths), **k3},
         {"name": "coo_tail_outer (K4)", "route": "cuda", "source": tail_src, "replaces": tail_rep,
          **by_path("K4", tail_paths), **k4},
+        {"name": "coo_tail_sum (K5), the refresh's tail sum, slice M's tail at k 53", "route": "cuda",
+         "source": tail_src, "replaces": "sgdnet_tpu/solver/saga.py:461 (_refresh_g_sum's tail scatter)",
+         **by_path("K5", tail_paths), **slice_m["k5"], "slice_c": k5_c},
         {"name": "epoch_probe (P1)", "route": "cuda", "source": probe_src,
          "replaces": "tools/bench_epoch_kernel.py:65", **by_path("P1", ["P1"]), **p1},
         {"name": "block_colsum (P2), bf16 106496 x 16384, B 8192", "route": "cuda", "source": probe_src,

@@ -743,11 +743,14 @@ class HybridCSR:
             return mm_acc(g.to(torch.bfloat16).T, hb.to(torch.bfloat16), acc) * self.head_scale.to(acc)[None, :]
         return mm_acc(g.to(hb.dtype).T, hb, acc)
 
-    def matvec_T(self, v: torch.Tensor) -> torch.Tensor:
+    def matvec_T(self, v: torch.Tensor, tail: torch.Tensor | None = None) -> torch.Tensor:
         """x.T @ v, v (n,) or (n, m): head by products over row chunks,
-        tail by scatter; in the tail's dtype."""
-        t = self.tail.matvec_T(v)
+        tail by scatter, or `tail`, the tail's part already summed (the
+        refresh's K5; written into); in the tail's dtype."""
         v2 = v if v.ndim == 2 else v[:, None]
+        if tail is not None and tuple(tail.shape) != (self.n_cols, v2.shape[1]):
+            raise ValueError(f"matvec_T: the summed tail is {tuple(tail.shape)}, not ({self.n_cols}, {v2.shape[1]})")
+        t = self.tail.matvec_T(v) if tail is None else tail
         if self.head.dtype == torch.int8:
             acc = torch.float32  # the int8 head's products accumulate in f32
         else:

@@ -1,5 +1,5 @@
-// The BlockCOO tail's two index-driven sums for Hopper (sm_90a): K3 and K4
-// of the port.
+// The BlockCOO tail's index-driven sums for Hopper (sm_90a): K3 and K4 of
+// the port, and K5, the g_sum refresh's tail sum.
 //
 // Replace the Pallas probes of tools/bench_pallas_gather.py (`pallas_gather`
 // :80 and `pallas_gather2` :100, out[e] = v[e] * w[c[e]]; `pallas_cumsum`
@@ -51,6 +51,29 @@
 //     owns it instead: lane l sums entries l, l + 32, ... in order and the
 //     32 lane sums meet in a fixed butterfly (`warp_sum_t`).  The heavy warps
 //     are extra CTAs of the same launch.
+//
+// K5 replaces no TPU kernel: the JAX package's refresh (saga.py
+// `_refresh_g_sum`) scatters the padded tail with XLA, as the port's plain
+// `PaddedCSR.matvec_T` does with `index_add_`.  It is the tail's part of
+// the refresh's X^T g over every block at once, read from the same
+// column-ordered views K4 reads, all blocks' rows of each view one
+// contiguous (n_blocks, .) tensor:
+//
+//   K5 tail sum  out[j, c]   = sum over blocks b in order, over column j's segment of block b in order,
+//                              vals_by_col[b, s] * g[b B + rows_by_col[b, s], c]                      (p, k)
+//
+// The index_add_ it replaces ran an atomic per entry of the padded n x L
+// tail, k wide, ~80% of them pad entries adding zero to column 0.  K5's
+// work is bytes read once (g, the true entries, col_seg; at k 53 on the
+// multiclass cell ~160 MB, ~0.05 ms at 3.35 TB/s).  One thread owns an
+// output (column, class) and writes it once, zero for a head or empty
+// column, so there is no memset, no atomic and no temporary, and the order
+// of each sum is fixed by the data: two launches give the same bits.
+// Classes run fastest across a warp, so a warp's g loads of one entry are
+// one contiguous row of g at k 53 and its col_seg / rows / vals loads are
+// broadcasts.  What bounds it is the chain of dependent loads a thread
+// walks (segment bounds, then row, then g): the bounds of SU blocks are
+// loaded together ahead of their walks.
 
 #include "common.h"
 
@@ -180,6 +203,51 @@ __global__ void __launch_bounds__(TT) coo_outer(const int* __restrict__ col_seg,
 
 unsigned grid_of(long long threads) { return (unsigned)((threads + TT - 1) / TT); }
 
+constexpr int SU = 8;  // K5: blocks whose segment bounds a thread loads together
+
+// One thread per (column j, class c); threads over [0, p * k), the
+// classes fastest.
+template <typename T>
+__global__ void __launch_bounds__(TT) coo_tail_sum(const int* __restrict__ col_seg,
+                                                   const int* __restrict__ rows_by_col,
+                                                   const T* __restrict__ vals_by_col, int n_blocks, long long E,
+                                                   int B, const T* __restrict__ g, int k, long long p,
+                                                   T* __restrict__ out) {
+  const long long t = blockIdx.x * (long long)TT + threadIdx.x;
+  if (t >= p * k) return;
+  const long long j = t / k;
+  const int c = (int)(t % k);
+  T acc = 0;
+  for (int b0 = 0; b0 < n_blocks; b0 += SU) {
+    int s0[SU], s1[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const bool live = b0 + u < n_blocks;
+      const long long o = (long long)(b0 + u) * (p + 1) + j;
+      s0[u] = live ? col_seg[o] : 0;
+      s1[u] = live ? col_seg[o + 1] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const long long b = b0 + u;
+      const int* rows = rows_by_col + b * E;
+      const T* vals = vals_by_col + b * E;
+      const T* gb = g + b * B * k + c;
+      for (int s = s0[u]; s < s1[u]; ++s) acc += vals[s] * gb[(long long)rows[s] * k];
+    }
+  }
+  out[t] = acc;
+}
+
+template <typename T>
+cudaError_t launch_tail_sum(const int* col_seg, const int* rows_by_col, const void* vals_by_col, int n_blocks,
+                            long long E, int B, const void* g, int k, long long p, void* out, cudaStream_t s) {
+  coo_tail_sum<T><<<grid_of(p * k), TT, 0, s>>>(col_seg, rows_by_col, static_cast<const T*>(vals_by_col),
+                                                n_blocks, E, B, static_cast<const T*>(g), k, p,
+                                                static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -216,6 +284,17 @@ int sgd_coo_tail_outer(const int* col_seg, const int* rows_by_col, const void* v
                                          heavy_cols, n_heavy, heavy_len, static_cast<const float*>(gc), k, p,
                                          (int)light, static_cast<float*>(corr));
   return cudaGetLastError();
+}
+
+// K5 over all n_blocks blocks: col_seg (n_blocks, p + 1), rows_by_col /
+// vals_by_col (n_blocks, E) are the BlockCOO's views whole, g (n_blocks B,
+// k); out (p, k) is written whole.
+int sgd_coo_tail_sum(const int* col_seg, const int* rows_by_col, const void* vals_by_col, int n_blocks,
+                     long long E, int B, const void* g, int dtype, int k, long long p, void* out, void* stream) {
+  if (n_blocks < 0 || B < 1 || k < 1 || p < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_tail_sum<double>(col_seg, rows_by_col, vals_by_col, n_blocks, E, B, g, k, p, out, s)
+                    : launch_tail_sum<float>(col_seg, rows_by_col, vals_by_col, n_blocks, E, B, g, k, p, out, s);
 }
 
 }  // extern "C"

@@ -96,8 +96,9 @@ class SolverConfig:
     step_backoff: bool = True
     #: run whole epochs with the epoch kernel K1 (solver/epoch_kernel.py)
     use_epoch_kernel: bool = False
-    #: BlockCOO tail ops through K3 / K4 (solver/tail_kernel.py); False runs
-    #: their plain torch versions on any device (the comparison path)
+    #: BlockCOO tail ops through K3 / K4 and the refresh's tail sum through
+    #: K5 (solver/tail_kernel.py); False runs the plain torch versions on any
+    #: device (the comparison path)
     use_tail_kernel: bool = True
     #: data-parallel execution (the JAX package's `axis_name`): a
     #: parallel.dist.Mesh whose ranks each hold a shard of the rows; its
@@ -411,11 +412,18 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
     return step
 
 
-def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None, mesh=None) -> SagaState:
+def _refresh_g_sum(x, w_total: float, state: SagaState, xc=None, mesh=None, *, kernels: bool) -> SagaState:
     """Exact recompute g_sum = (1/W) X_eff^T g_mem (one pass over x); under
-    a mesh the ranks' [g_sum, col_sum] are summed by one all-reduce."""
+    a mesh the ranks' [g_sum, col_sum] are summed by one all-reduce.  With
+    `kernels` (the config's `use_tail_kernel`), a HybridCSR with a BlockCOO
+    tail sums its tail by K5 (`tail_kernel.coo_tail_sum`, in a fixed order;
+    its twin on the CPU), which raises where that tail does not cover
+    g_mem's rows or x's columns; else `matvec_T` scatters the tail."""
     with profiling.span("sgdnet.refresh", device=state.g_mem.device):
-        if isinstance(x, (PaddedCSR, HybridCSR)):
+        bt = x.blk_tail if isinstance(x, HybridCSR) else None
+        if kernels and bt is not None:
+            g_sum = x.matvec_T(state.g_mem, tail_kernel.coo_tail_sum(bt, state.g_mem)).T.contiguous() / w_total
+        elif isinstance(x, (PaddedCSR, HybridCSR)):
             g_sum = x.matvec_T(state.g_mem).T.contiguous() / w_total
         else:
             g_sum = (state.g_mem.T @ x) / w_total
@@ -457,7 +465,7 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
                 with profiling.span("sgdnet.step"):
                     state = step(state, scal, sel)
             if config.g_sum_refresh and (every <= 1 or it is None or (it + 1) % every == 0):
-                state = _refresh_g_sum(x, w_total, state, xc, config.mesh)
+                state = _refresh_g_sum(x, w_total, state, xc, config.mesh, kernels=config.use_tail_kernel)
             return state
 
     return epoch

@@ -249,7 +249,7 @@ def screened_path(
             state0 = SagaState(w=tens(w_full), intercept=b_dev, g_mem=g_mem,
                                g_sum=torch.zeros((k, p), dtype=dtype, device=dev),
                                g_sum_intercept=torch.zeros((k,), dtype=dtype, device=dev))
-            state0 = _refresh_g_sum(x, w_total, state0, xc)
+            state0 = _refresh_g_sum(x, w_total, state0, xc, kernels=config.use_tail_kernel)
             state, _, results = fit_backoff(
                 lambda gmul, try_: run_path(x, xc, state0, li, hi, gmul, li * 7 + 1000 * try_, pf, box), full_elems)
             w_grp = np.asarray(results.w, dtype=np.float64)

@@ -1,13 +1,20 @@
 """K3 / K4: the BlockCOO tail's forward and outer sums (twins of
 sgdnet_tpu/solver/saga.py `_coo_batch_predict` / `_coo_batch_outer`; the
 Pallas probes they replace are tools/bench_pallas_gather.py:80, 100, 116,
-140).
+140), and K5, the g_sum refresh's tail sum over every block.
 
 For block `blk` of a BlockCOO tail `bt` (core/sparse.py):
 
     coo_tail_forward(bt, blk, w (k, p), base=None, intercept=None, offs=None) -> (B, k):
         out[rows[e]] += vals[e] * w[:, cols[e]], then ((base + out) + intercept) + offs
     coo_tail_outer(bt, blk, gc (B, k))   -> (k, p):  corr[:, cols[e]] += vals[e] * gc[rows[e]]
+
+and over all blocks at once, g (n_blocks * B, k):
+
+    coo_tail_sum(bt, g) -> (p, k):  the tail's part of x.T @ g, each
+        column's sum over the blocks in order, within a block over its
+        column-ordered entries in order (K5: no atomics, the same bits
+        from every launch)
 
 K3's optional `base` (B, k), `intercept` (k,) and `offs` (B, k) assemble
 the step's linear predictor in the kernel's launch, each add in the JAX
@@ -61,14 +68,28 @@ def coo_tail_outer_reference(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
     return corr_t.T
 
 
-def _check(bt, blk: int, t: torch.Tensor, shape, what: str) -> None:
+def coo_tail_sum_reference(bt, g: torch.Tensor) -> torch.Tensor:
+    """Plain torch K5: over the blocks in order, each block's products
+    vals[e] * g[row] scatter-added into their columns.  A block's entries
+    come row-major, and `rows_by_col` is a stable sort of them by column,
+    so each column's entries come in the order of its K5 segment: on the
+    CPU, where `index_add_` adds in index order, each sum runs in K5's
+    order."""
+    out = torch.zeros((bt.n_cols, g.shape[1]), dtype=g.dtype, device=g.device)
+    for b, e in enumerate(bt.counts.tolist()):
+        rows = b * bt.batch + bt.rows[b, :e].long()
+        out.index_add_(0, bt.cols[b, :e].long(), bt.vals[b, :e, None].to(g.dtype) * g[rows])
+    return out
+
+
+def _check(bt, blk, t: torch.Tensor, shape, what: str) -> None:
     if t.dtype not in _DTYPE_CODE or bt.dtype != t.dtype:
         raise ValueError(f"{what}: takes f32/f64 operands of the tail's dtype; got {t.dtype} and {bt.dtype}")
     if bt.device != t.device:
         raise ValueError(f"{what}: the BlockCOO tail must be on {t.device}")
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous {shape} operand, got {tuple(t.shape)}")
-    if not 0 <= blk < len(bt.addr):
+    if blk is not None and not 0 <= blk < len(bt.addr):
         raise ValueError(f"{what}: block {blk} outside the tail's {len(bt.addr)} blocks")
 
 
@@ -140,6 +161,30 @@ def coo_tail_outer(bt, blk: int, gc: torch.Tensor) -> torch.Tensor:
     return corr
 
 
+def coo_tail_sum(bt, g: torch.Tensor) -> torch.Tensor:
+    """K5: the tail's part of x.T @ g over every block, (p, k), for g
+    (n_blocks * B, k) (the refresh's g_mem).  The kernel writes every
+    element, zero on the head's and empty columns, so the output is
+    allocated uninitialised.  A g of other rows than the tail's blocks
+    hold raises on either device."""
+    k = g.shape[1] if g.ndim == 2 else 0
+    if not g.is_cuda:
+        if tuple(g.shape) != (bt.n_blocks * bt.batch, k):
+            raise ValueError(f"coo_tail_sum: expected a {(bt.n_blocks * bt.batch, k)} operand, got {tuple(g.shape)}")
+        return coo_tail_sum_reference(bt, g)
+    _check(bt, None, g, (bt.n_blocks * bt.batch, k), "coo_tail_sum")
+    out = torch.empty((bt.n_cols, k), dtype=g.dtype, device=g.device)
+    code = build.load_library().sgd_coo_tail_sum(
+        bt.col_seg.data_ptr(), bt.rows_by_col.data_ptr(), bt.vals_by_col.data_ptr(), bt.n_blocks,
+        bt.rows_by_col.shape[1], bt.batch, g.data_ptr(), _DTYPE_CODE[g.dtype], k, bt.n_cols, out.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    build.check(code, "coo_tail_sum")
+    coo_tail_sum.launches += 1
+    return out
+
+
 #: kernel launches since the last reset (the twins never count)
 coo_tail_forward.launches = 0
 coo_tail_outer.launches = 0
+coo_tail_sum.launches = 0

@@ -11,9 +11,10 @@ Bounds: K2 as tests/test_pallas.py (f32: g atol 1e-5, corr atol 2e-3;
 bf16: g 3e-2, corr 2e-2 x max|corr|) and bit-identical across two runs; K1
 one epoch at 1e-5 x scale, a chunk of epochs (every variant) at 1e-4 x
 scale with the twin's epoch count and stop flag, bit-identical across two
-runs; K3 / K4
+runs; K3 / K4 / K5
 at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
-across two runs, K3 at every lane count with and without its epilogue;
+across two runs, K3 at every lane count with and without its epilogue,
+K5 also through the g_sum refresh (two refreshes, the same bits);
 fits through a kernel vs the plain step path on the card at 1e-4 x scale;
 the probes P1 at 1e-5 x max and bit-identical across two runs, P2 / P3
 within 1e-6 x sum |x| per column, P2 bit-identical.
@@ -336,6 +337,11 @@ def test_tail_kernels_reject_what_they_do_not_take(dev):
         tk.coo_tail_forward(bt, bt.n_blocks, torch.zeros((1, bt.n_cols), device=dev))
     with pytest.raises(ValueError):
         tk.coo_tail_outer(bt, 0, torch.zeros((bt.batch + 1, 1), device=dev))
+    n = bt.n_blocks * bt.batch
+    for g in (torch.zeros((n - 1, 2), device=dev), torch.zeros((n, 2), dtype=torch.float64, device=dev),
+              torch.zeros((2, n), device=dev).T, torch.zeros(n, device=dev)):
+        with pytest.raises(ValueError):
+            tk.coo_tail_sum(bt, g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -386,6 +392,85 @@ def test_tail_forward_rejects_what_it_does_not_take(dev):
                                                                      device="cpu"), 32), 1, torch.float32)
 
 
+def _cell_tail(dev, dtype, n_blocks=3, B=8192, p=47236, head=16384, seed=0):
+    """The benchmark cells' tail cut to `n_blocks` blocks of B rows: rcv1's
+    47236 columns drawn 76 a row by bench.py's Zipf use (rank + 10)^-1.15,
+    the entries past the 16384-column head kept (~5 a row), N(0, 1)
+    values."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * B
+    wz = (np.arange(p) + 10.0) ** -1.15
+    cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random((n, 76))).clip(0, p - 1)
+    keep = cols >= head
+    rows = np.repeat(np.arange(n)[:, None], 76, 1)[keep]
+    x = sp.csr_matrix((rng.normal(size=keep.sum()), (rows, cols[keep])), shape=(n, p))
+    x.sum_duplicates()
+    return BlockCOO.from_padded(PaddedCSR.from_scipy(x, dtype=dtype, device=dev), B), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,k", [("cell", 1), ("cell", 53), ("zipf", 3), ("zipf", 10)])
+def test_tail_sum_matches_twin(dev, dtype, case, k):
+    """K5 over every block against its twin and the padded tail's
+    scatter (1e-5 relative at f32, 1e-12 at f64): at the cells' shape cut
+    to 3 blocks at k 1 and 53, and on `_zipf_tail` (heavy columns, empty
+    rows) at k 3 (a column's classes in registers) and 10; one launch a
+    call, and a second launch gives the same bits."""
+    if case == "cell":
+        bt, x = _cell_tail(dev, dtype)
+        tail = PaddedCSR.from_scipy(x, dtype=dtype, device=dev)
+    else:
+        bt = _zipf_tail(dev, dtype)
+        tail = None
+    g = torch.tensor(np.random.default_rng(k).normal(size=(bt.n_blocks * bt.batch, k)), dtype=dtype, device=dev)
+    before = tk.coo_tail_sum.launches
+    out = tk.coo_tail_sum(bt, g)
+    assert tk.coo_tail_sum.launches == before + 1
+    ref = tk.coo_tail_sum_reference(bt, g)
+    torch.cuda.synchronize()
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    if tail is not None:
+        torch.testing.assert_close(out, tail.matvec_T(g), atol=tol, rtol=0)
+    assert torch.equal(out, tk.coo_tail_sum(bt, g))
+
+
+def test_refresh_runs_tail_sum_once_and_repeats_its_bits(dev):
+    """The g_sum refresh on a HybridCSR with a BlockCOO tail launches K5
+    once a refresh (4 epochs at refresh every 2 through `_make_epoch`: 2
+    launches) and none with `use_tail_kernel=False`; two refreshes of the
+    same state give bit-identical g_sum; the route's g_sum equals the
+    scatter route's within 1e-5 relative (f32)."""
+    import dataclasses
+
+    from sgdnet_tpu_torch.core.sparse import HybridCSR
+    from sgdnet_tpu_torch.solver import saga
+
+    _, x = _cell_tail(dev, torch.float32, n_blocks=2, B=2048)
+    h, _ = HybridCSR.split_columns(sp.hstack([sp.random(x.shape[0], 256, 0.3, format="csr", random_state=1), x],
+                                             format="csr"), coverage=0.5, max_head=256, device=dev)
+    B, n, k = 2048, x.shape[0], 3
+    h = dataclasses.replace(h, blk_tail=BlockCOO.from_padded(h.tail, B))
+    rng = np.random.default_rng(2)
+    y = torch.tensor(np.eye(k)[rng.integers(0, k, n)], dtype=torch.float32, device=dev)
+    fam, pen = get_family("multinomial", n_classes=k), select_penalty(1.0, "multinomial", "ungrouped")
+    for kernels, per_refresh in ((True, 1), (False, 0)):
+        config = saga.SolverConfig(batch_size=B, sampling="block", g_sum_refresh_every=2, use_tail_kernel=kernels)
+        epoch = saga._make_epoch(h, y, torch.ones(n, device=dev), float(n), fam, pen, config)
+        state = saga.init_state(n, h.n_cols, k, torch.float32, dev)
+        before = tk.coo_tail_sum.launches
+        for it in range(4):
+            state = epoch(state, torch.randperm(n // B), 0.05, 1e-3, 0.0, it=it)
+        torch.cuda.synchronize()
+        assert tk.coo_tail_sum.launches == before + 2 * per_refresh
+    a = saga._refresh_g_sum(h, float(n), state, kernels=True)
+    b = saga._refresh_g_sum(h, float(n), state, kernels=True)
+    plain = saga._refresh_g_sum(h, float(n), state, kernels=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a.g_sum, b.g_sum) and torch.equal(a.g_sum_intercept, b.g_sum_intercept)
+    torch.testing.assert_close(a.g_sum, plain.g_sum, atol=1e-5 * max(1.0, float(plain.g_sum.abs().max())), rtol=0)
+
+
 @pytest.mark.parametrize("head", ["bfloat16", "int8", "float32"])
 def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     """A hybrid fit on the card through K3 / K4 (and K2 on a bf16 / f32
@@ -404,13 +489,17 @@ def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     common = dict(family="binomial", nlambda=4, lambda_min_ratio=0.1, batch_size=1024, sampling="block",
                   hybrid_max_head=256, hybrid_coverage=0.8, hybrid_head_dtype=head, device=dev, maxit=60)
     launches = (tk.coo_tail_forward.launches, tk.coo_tail_outer.launches, hk.fused_head_step_at.launches)
+    sums = tk.coo_tail_sum.launches
     f_k = st.fit(x, y, use_pallas=head != "int8", **common)
     assert f_k.stats["tail_kernel"] is True and f_k.stats["head_kernel"] is (head != "int8")
     assert tk.coo_tail_forward.launches > launches[0] and tk.coo_tail_outer.launches > launches[1]
     assert (hk.fused_head_step_at.launches > launches[2]) is (head != "int8")
+    assert tk.coo_tail_sum.launches > sums  # the refresh's tail sum (K5)
+    sums = tk.coo_tail_sum.launches
     f_p = st.fit(x, y, use_pallas=False, use_tail_kernel=False, lambda_path=f_k.lambda_,
                  **{k: v for k, v in common.items() if k != "nlambda"})
     assert f_p.stats["tail_kernel"] is False and f_p.stats["head_kernel"] is False
+    assert tk.coo_tail_sum.launches == sums
     scale = max(1.0, np.abs(f_p.beta).max())
     assert np.abs(f_k.beta - f_p.beta).max() / scale < (1e-2 if head == "bfloat16" else 1e-3)
     assert np.isfinite(f_k.dev_ratio).all() and f_k.dev_ratio[-1] > f_k.dev_ratio[0]

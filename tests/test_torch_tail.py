@@ -356,3 +356,161 @@ def test_profile_sparse_slices_on_the_cpu():
         assert s["tail_kernel"] is True and s["k3_launches"] == 0 and s["epochs"] >= 2
         assert s["step"]["steps"] == 2 and s["step"]["ms_per_step"] > 0 and s["step"]["kernels_per_step"] is None
         assert s["k3"]["ms"] is None and s["k3"]["lanes"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# K5: the g_sum refresh's tail sum over every block
+# ---------------------------------------------------------------------------
+
+TAIL_SUM_CASES = ("seed0", "seed1", "heavy_and_empty_block", "pad_rows", "scaled")
+
+
+def _tail_sum_case(case):
+    """(PaddedCSR tail, its BlockCOO) of a `_tail` design, f64: seeds 0 and
+    1; seed 2 (a column above 2 x HEAVY_LEN in a block, an empty block);
+    seed 1 with a block of pad rows appended; seed 1 scale-standardized
+    (`scale_columns` on the padded tail and on the packed one)."""
+    jb, x = _tail({"seed0": 0, "seed1": 1, "heavy_and_empty_block": 2}.get(case, 1))
+    tp = PaddedCSR.from_scipy(x, dtype=torch.float64, device="cpu")
+    B = jb.batch
+    if case == "pad_rows":
+        tp = tp.pad_rows(tp.n_rows + B)
+    bt = BlockCOO.from_padded(tp, B)
+    if case == "scaled":
+        scale = torch.tensor(np.random.default_rng(7).uniform(0.5, 2.0, tp.n_cols))
+        tp, bt = tp.scale_columns(scale), bt.scale_columns(scale)
+    return tp, bt
+
+
+def _walk_tail_sum(bt, g):
+    """K5's walk: the thread of (column j, class chunk) sums over the blocks
+    in order, within a block over j's segment of the column-ordered copy
+    in order, and writes every column (zero where no block has an entry)."""
+    B, p = bt.batch, bt.n_cols
+    seg, rows, vals = bt.col_seg.numpy(), bt.rows_by_col.numpy(), bt.vals_by_col.numpy()
+    out = np.full((p, g.shape[1]), np.nan)
+    for j in range(p):
+        acc = np.zeros(g.shape[1])
+        for b in range(bt.n_blocks):
+            for s in range(seg[b, j], seg[b, j + 1]):
+                acc += vals[b, s] * g[b * B + rows[b, s]]
+        out[j] = acc
+    assert all(seg[b, p] == int(bt.counts[b]) for b in range(bt.n_blocks))  # no pad entry read
+    return out
+
+
+@pytest.mark.parametrize("case", TAIL_SUM_CASES)
+@pytest.mark.parametrize("k", [1, 3, 53])
+def test_tail_sum_twin_matches_padded_matvec_T(case, k):
+    """K5's twin equals the padded tail's `matvec_T` (the scatter the
+    refresh ran before) within 1e-12 relative at f64, and K5's walk
+    replayed in numpy equals the twin; the CPU call runs the twin and
+    counts no launch."""
+    tp, bt = _tail_sum_case(case)
+    g = torch.tensor(np.random.default_rng(k).normal(size=(tp.n_rows, k)))
+    ref = tp.matvec_T(g)
+    before = tk.coo_tail_sum.launches
+    got = tk.coo_tail_sum(bt, g)
+    assert tk.coo_tail_sum.launches == before and got.shape == (tp.n_cols, k)
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(_walk_tail_sum(bt, g.numpy()), got.numpy(), rtol=0, atol=1e-12 * scale)
+
+
+def _refresh_problem(k, seed=3, n=256, B=64):
+    """The JAX package's HybridCSR (f64, a BlockCOO tail, the last block's
+    rows empty) and the port's copy of it, a random g_mem (pad rows
+    zero), the row weights and a centering term zero on the head."""
+    rng = np.random.default_rng(seed)
+    p = 300
+    wz = (np.arange(p) + 5.0) ** -1.1
+    counts = rng.integers(0, 9, n)
+    counts[n - B:] = 0
+    rows = np.repeat(np.arange(n), counts)
+    cols = np.searchsorted(np.cumsum(wz) / wz.sum(), rng.random(len(rows))).clip(0, p - 1)
+    x = sp.csr_matrix((rng.normal(size=len(rows)), (rows, cols)), shape=(n, p))
+    x.sum_duplicates()
+    jh, _ = jsparse.HybridCSR.split_columns(x, coverage=0.5, max_head=64, dtype=jnp.float64)
+    jh = dataclasses.replace(jh, blk_tail=jsparse.BlockCOO.from_padded(jh.tail, B))
+    g_mem = rng.normal(size=(n, k))
+    g_mem[n - B + 10:] = 0.0
+    xc = rng.normal(size=p)
+    xc[: jh.head.shape[1]] = 0.0
+    return jh, layout_from_jax(jh, device="cpu"), g_mem, xc
+
+
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("k", [1, 3])
+def test_refresh_through_tail_sum_matches_jax(k, centered):
+    """`_refresh_g_sum` on the BlockCOO route (K5's twin on the CPU) against
+    the JAX package's `_refresh_g_sum` on the same f64 state, with and
+    without the centering term: g_sum and g_sum_intercept within 1e-12
+    relative, as the scatter route is."""
+    from sgdnet_tpu_torch.solver import saga as tsaga
+
+    jh, th, g_mem, xc = _refresh_problem(k)
+    n, p = g_mem.shape[0], th.n_cols
+    jstate = jsaga.SagaState(jnp.zeros((k, p)), jnp.zeros(k), jnp.asarray(g_mem), jnp.zeros((k, p)), jnp.zeros(k))
+    jxc = jnp.asarray(xc) if centered else None
+    ref = jsaga._refresh_g_sum(jh, jxc, jnp.ones(n), float(n), jstate, jsaga.SolverConfig(batch_size=th.blk_tail.batch))
+    tstate = tsaga.init_state(n, p, k, torch.float64, "cpu")._replace(g_mem=torch.tensor(g_mem))
+    txc = torch.tensor(xc) if centered else None
+    for kernels in (True, False):
+        got = tsaga._refresh_g_sum(th, float(n), tstate, txc, kernels=kernels)
+        for f in ("g_sum", "g_sum_intercept"):
+            r = np.asarray(getattr(ref, f))
+            np.testing.assert_allclose(getattr(got, f).numpy(), r, rtol=0, atol=1e-12 * max(1.0, np.abs(r).max()))
+
+
+ROUTES = {
+    "blockcoo": ("hybrid", True, 1),
+    "use_tail_kernel_false": ("hybrid", False, 0),
+    "no_blk_tail": ("hybrid_unpacked", True, 0),
+    "blocks_short_of_g_mem": ("hybrid_short", True, None),
+    "padded_csr": ("padded", True, 0),
+    "dense": ("dense", True, 0),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_refresh_takes_tail_sum_only_on_its_route(route, monkeypatch):
+    """K5 runs in `_make_epoch`'s refresh only where the design is a
+    HybridCSR with a BlockCOO tail and the config keeps `use_tail_kernel`:
+    once a refresh (refresh every 2 epochs, 4 epochs); PaddedCSR, dense and
+    unpacked designs and `use_tail_kernel=False` keep the `matvec_T` route.
+    Either route gives the same g_sum (1e-12, f64).  A BlockCOO short of
+    g_mem's rows raises at the first refresh, as the step raises on a
+    tail it cannot take."""
+    from sgdnet_tpu_torch.families import get_family
+    from sgdnet_tpu_torch.penalties import select_penalty
+    from sgdnet_tpu_torch.solver import saga as tsaga
+
+    layout, kernels, per_refresh = ROUTES[route]
+    _, th, _, _ = _refresh_problem(2)
+    B, n, k = th.blk_tail.batch, th.n_rows, 2
+    x = {"hybrid": th, "hybrid_unpacked": dataclasses.replace(th, blk_tail=None),
+         "hybrid_short": dataclasses.replace(th, blk_tail=BlockCOO.from_padded(th.tail.take_rows(
+             torch.arange(n // 2)), B // 2)),  # the steps skip it too: packed for another batch
+         "padded": th.tail, "dense": th.matmul_dense(torch.eye(th.n_cols, dtype=torch.float64))}[layout]
+    calls = []
+    real = tk.coo_tail_sum
+    monkeypatch.setattr(tk, "coo_tail_sum", lambda bt, g: calls.append(g.shape) or real(bt, g))
+    rng = np.random.default_rng(9)
+    y = torch.tensor(np.eye(k)[rng.integers(0, k, n)])
+    config = tsaga.SolverConfig(batch_size=B, sampling="block", g_sum_refresh_every=2, use_tail_kernel=kernels)
+    fam, pen = get_family("multinomial", n_classes=k), select_penalty(1.0, "multinomial", "ungrouped")
+    epoch = tsaga._make_epoch(x, y, torch.ones(n, dtype=torch.float64), float(n), fam, pen, config)
+    state = tsaga.init_state(n, th.n_cols, k, torch.float64, "cpu")
+    if per_refresh is None:
+        with pytest.raises(ValueError, match="coo_tail_sum"):
+            for it in range(2):
+                state = epoch(state, torch.randperm(n // B, generator=torch.Generator().manual_seed(it)), 0.05,
+                              1e-3, 0.0, it=it)
+        assert len(calls) == 1
+        return
+    for it in range(4):
+        state = epoch(state, torch.randperm(n // B, generator=torch.Generator().manual_seed(it)), 0.05, 1e-3, 0.0,
+                      it=it)
+    assert len(calls) == 2 * per_refresh
+    plain = tsaga._refresh_g_sum(x, float(n), state, kernels=False)
+    torch.testing.assert_close(state.g_sum, plain.g_sum, rtol=0, atol=1e-12 * max(1.0, float(plain.g_sum.abs().max())))
