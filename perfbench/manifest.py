@@ -1,10 +1,14 @@
 """BENCHMARK.json and the files each of its cells is made of.
 
 A cell (an entry of `workloads`) names a configuration, whose file the
-manifest gives, and a traffic mix, read from `traffic/<traffic>.json`;
-the limits of its comparison are `limits/<cell>.json`; each per-layer
-metric is read by `metrics/<metric>.py`.  A later cell or metric brings
-its own files and edits none of these.
+manifest gives, and a traffic mix, read from `traffic/<traffic>.json`,
+whose `kind` is the loop that runs it: a built-in one of
+`workload.KINDS`, or the `run` of `kinds/<kind>.py` (its contract is
+`perfbench/kinds/__init__.py`'s docstring); the limits of its comparison
+are `limits/<cell>.json`; each per-layer metric is read by
+`metrics/<metric>.py`.  A cell's `chips` is the number of its ranks, one
+process a card (`ranks.py`).  A later cell, kind or metric brings its
+own files and edits none of these.
 """
 
 from __future__ import annotations
@@ -60,10 +64,15 @@ def cell(name: str, manifest: dict | None = None) -> Cell:
                 _json(os.path.join(HERE, "limits", name + ".json")), e2e, layer)
 
 
-def reader(metric: str):
-    """The `read(ctx)` of metrics/<metric>.py."""
-    path = os.path.join(HERE, "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric.replace('.', '_')}", path)
+def module(path: str, name: str):
+    """The Python file `path`, loaded as the module `name` (a file found by
+    its name in BENCHMARK.json, not a package's module)."""
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The `read(ctx)` of metrics/<metric>.py."""
+    return module(os.path.join(HERE, "metrics", metric + ".py"), f"perfbench_metric_{metric.replace('.', '_')}").read

@@ -7,12 +7,13 @@ kernels (in `sgdnet_tpu_torch/_build/` inside the checkout), warms up
 the cell's own shapes, measures for `--seconds` (--trace 0: the cell's
 end-to-end metrics) or runs a traced window (--trace 1: its per-layer
 metrics), then holds what the timed path produced to the plain
-reference.  The last line of standard output is one JSON object:
-correct, attempted, failed, metrics, device, with --trace 1 a
-breakdown, and last the numbers compared beside their limits, which
-also end standard error.  Without a CUDA card, or with fewer than the
-cell asks for, it prints no result and exits 2; where JAX or the JAX
-package was loaded, it exits 3.
+reference.  A cell on more than one chip runs as that many ranks, one
+process a card (`ranks.py`), whose results make the one line.  The last
+line of standard output is one JSON object: correct, attempted, failed,
+metrics, device, with --trace 1 a breakdown, and last the numbers
+compared beside their limits, which also end standard error.  Without a
+CUDA card, or with fewer than the cell asks for, it prints no result and
+exits 2; where JAX or the JAX package was loaded, it exits 3.
 """
 
 import time
@@ -104,6 +105,10 @@ def main(argv=None) -> int:
         print(f"perfbench: the cell {a.workload} needs {cell.chips} CUDA card(s); torch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}: no result", file=sys.stderr)
         return 2
+    if cell.chips > 1:
+        from perfbench import ranks
+
+        return ranks.main(cell, a.seed, a.seconds, bool(a.trace), T0)
     from perfbench import workload
 
     device = torch.device("cuda", 0)
@@ -113,11 +118,16 @@ def main(argv=None) -> int:
     if bad:
         print(f"perfbench: the run loaded {', '.join(bad)}: no result", file=sys.stderr)
         return 3
-    out = result(cell, outcome, bool(a.trace), info)
+    emit(result(cell, outcome, bool(a.trace), info))
+    return 0
+
+
+def emit(out: dict) -> None:
+    """The numbers compared beside their limits as the last lines of standard
+    error, then the result as the last line of standard output."""
     for name, c in out["checks"].items():
         print(f"perfbench check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
     print(json.dumps(out), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

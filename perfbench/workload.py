@@ -21,13 +21,17 @@ configuration's file are the parameters:
   epochs that fit ran it.
 
 Both compare after the window has closed, the peak memory has been read
-and the program's state is freed.
+and the program's state is freed.  Any other kind is the `run` of its
+own file, `kinds/<kind>.py` (`kind`; the contract it keeps, on one card
+or several ranks, is the docstring of `perfbench/kinds/__init__.py`).
 """
 
 from __future__ import annotations
 
 import gc
 import importlib
+import os
+import re
 import time
 from dataclasses import dataclass, field
 
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from perfbench import adapter, check, trace
+from perfbench import adapter, check, manifest, trace
 from perfbench.reference import saga as ref
 
 
@@ -271,7 +275,22 @@ def run_fits(cell, seed: int, seconds: float, traced: bool, device, t0: float) -
 
 
 KINDS = {"epochs": run_epochs, "fits": run_fits}
+#: where a kind that is not built in has its file, `<kind>.py`
+KINDS_DIR = os.path.join(manifest.HERE, "kinds")
+_KIND_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
-def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> Outcome:
-    return KINDS[cell.traffic["kind"]](cell, seed, seconds, traced, device, t0)
+def kind(name: str, directory: str = KINDS_DIR):
+    """The loop of the traffic kind `name`: the built-in one of KINDS, else
+    the `run` of `<directory>/<name>.py`, whose contract is the docstring
+    of `perfbench.kinds`."""
+    if name in KINDS:
+        return KINDS[name]
+    path = os.path.join(directory, f"{name}.py")
+    if not _KIND_NAME.fullmatch(name) or not os.path.isfile(path):
+        raise LookupError(f"no traffic kind {name!r}: it is not one of {sorted(KINDS)} and there is no file {path}")
+    return manifest.module(path, f"perfbench_kind_{name.replace('.', '_')}").run
+
+
+def run(cell, seed: int, seconds: float, traced: bool, device, t0: float, kinds_dir: str = KINDS_DIR) -> Outcome:
+    return kind(cell.traffic["kind"], kinds_dir)(cell, seed, seconds, traced, device, t0)
