@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card (nvidia-smi name and power limit), torch, CUDA and nvcc;
-  2. build the hand-written kernels' four sources in csrc/ and report the
+  2. build the hand-written kernels' five sources in csrc/ and report the
      seconds; the SASS of K2's streamed bf16 kernels holds HMMA (tensor
      core) instructions (cuobjdump, beside nvcc, run meanwhile and read
      after phase 3);
@@ -69,7 +69,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      packed, against its twin and the padded tail's `matvec_T` (the
      scatter it replaced; 1e-5 relative, the same bits over two launches),
      its time a call, on the device, the twin, the scatter,
-     torch.sparse.mm and the bound;
+     torch.sparse.mm and the bound; then K6 (the step's finish) through
+     a launcher bound at the fit's step's shapes (k 1, p 47000, the head's
+     16384 columns, B 8192; the fit itself, standardized, carries the
+     centering term xc and keeps the chain) on a seeded state, against the chain of torch
+     ops it replaces run on the card (w and g_sum the same bits, the
+     intercept within 1e-6 relative; the same bits over two launches), its
+     time a call, on the device, the chain's and the bound;
  9b. slice M: slice C's design with 53 classes (LIBSVM rcv1.multiclass's
      count) drawn from a seeded softmax model over head and tail columns
      (tools/profile_sparse_slices.py `make_sparse_multiclass_labels`),
@@ -79,7 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      through K2 (streamed) + K3 + K4 at k 53, K3 (with and without its
      epilogue) and K4 at k 53 against their plain versions on every block
      of the tail the fit packed (1e-5 relative, the same bits over two
-     runs), K5 at k 53 on that tail as in phase 9, the fit held per lambda by penalized objective against the
+     runs), K5 and K6 at k 53 on that tail and step as in phase 9, the fit held per lambda by penalized
+     objective against the
      same fit on plain torch ops on the first 2 lambdas (1e-4 relative),
      with its walls, epochs, nnz/s, peak
      device memory, the step's profile and the streamed kernels in the
@@ -1091,17 +1098,110 @@ def phase_k2_wide(rng, dev, seed):
 
 # ---------------------------------------------------------------------------
 # phases 9 and 10: the sparse slices
+# phases 9 and 9b: K6 against the chain it replaced
+# ---------------------------------------------------------------------------
+
+
+def all_device_ms(fn, reps: int) -> float | None:
+    """Device time per call of fn over every kernel it launches
+    (torch.profiler over `reps` calls after a warm-up; None where it saw
+    none)."""
+    from sgdnet_tpu_torch.utils.profiling import device_kernels, self_device_us
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(self_device_us(e) for e in device_kernels(prof))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def phase_k6(made, fit_launches, seed, dev, what, card) -> dict:
+    """K6 at the step's shapes (`made` is the fit's (step, x, y, config)):
+    through the step's own bound launcher (`step.finish`), or, where the
+    fit took the chain (a standardized sparse fit carries the centering
+    term xc, which keeps it), through a launcher bound to the same B, k, p,
+    head width, elastic net, w_total and intercept; on a state and
+    operands drawn from its own seed (wb of 0s and 1s, as the fits'
+    weights), against the chain of torch ops it replaced
+    (`finish_step_reference`) run on the card: the new w and g_sum the
+    same bits, the intercept within 1e-6 relative (its sum runs in another
+    order), the same bits from two launches; then a call (CUDA events),
+    device time, the chain's (its head merge on a copy) and the bound:
+    corr, the head's corr, w and g_sum read once, w and g_sum written once,
+    wb and g_change read once."""
+    from sgdnet_tpu_torch.solver import finish_kernel as fk
+    from sgdnet_tpu_torch.solver import saga
+
+    from sgdnet_tpu_torch.penalties import ElasticNet
+
+    step, x, y, config = made
+    L = step.finish
+    check((L is None) == (fit_launches == 0), f"{what}: K6 bound {L is not None}, its calls {fit_launches}")
+    if L is None:
+        L = fk.FinishLauncher(config.batch_size, y.shape[1], x.n_cols, x.n_head, y.dtype, dev, ElasticNet(),
+                              float(x.n_rows), config.fit_intercept)
+    B, k, p, D, dt = L.B, L.k, L.p, L.D, L.dtype
+    rng = np.random.default_rng(seed + 1000 + k)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dt)  # noqa: E731
+    state = saga.SagaState(w=t(0.05 * rng.standard_normal((k, p))), intercept=t(rng.standard_normal(k)),
+                           g_mem=torch.zeros((B, k), dtype=dt, device=dev), g_sum=t(1e-3 * rng.standard_normal((k, p))),
+                           g_sum_intercept=t(1e-3 * rng.standard_normal(k)))
+    ops = dict(wb=t(rng.random(B) < 0.95), g_change=t(0.1 * rng.standard_normal((B, k))),
+               corr=t(rng.standard_normal((k, p))), corr_head=t(rng.standard_normal((k, D))) if D else None)
+    scal = saga._scalars(3e-3, 5.0, 0.0, 1.0, saga.np_dtype(dt))
+    state = L.prepare(state)
+    before = fk.finish_step.launches
+    a, b = L(state, scal, **ops), L(state, scal, **ops)
+    check(fk.finish_step.launches == before + 2, f"K6 ({what}): not one counted call a launch")
+
+    def chain():
+        return fk.finish_step_reference(state, scal, ops["wb"], ops["g_change"], ops["corr"], L.penalty, L.w_total,
+                                        L.fit_intercept, pf=L.pf, box=L.box, corr_head=ops["corr_head"])
+
+    ref = chain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(a, b)), f"K6 gave different bits in two launches ({what})")
+    same = torch.equal(a.w, ref.w) and torch.equal(a.g_sum, ref.g_sum)
+    rel = max(float((u - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+              for u, v in ((a.intercept, ref.intercept), (a.g_sum_intercept, ref.g_sum_intercept)))
+    zeros = int((a.w == 0).sum())
+    print(f"  K6 at {what}'s step (B {B}, k {k}, p {p}, head {D}, {dt}): w and g_sum the chain's bits {same}, "
+          f"intercept max rel diff {rel:.3e} (bound 1e-6), bits identical over two launches; {zeros} of {k * p} "
+          f"coefficients zeroed by the prox; the fit's K6 calls {fit_launches} (0: its xc kept the chain)")
+    check(same, f"K6's w / g_sum differ from the chain's bits ({what})")
+    check(rel <= 1e-6, f"K6's intercept disagrees with the chain ({what}): rel {rel:.3e}")
+    item = torch.empty((), dtype=dt).element_size()
+    nbytes = item * (5 * k * p + k * D + B * k + B)
+    r = {"k": k, "p": p, "D": D, "B": B, "fit_launches": fit_launches, "same_bits_as_chain": same,
+         "intercept_max_rel_diff": rel,
+         "ms": cuda_ms(lambda: L(state, scal, **ops), 200),
+         "device_ms": device_ms(lambda: L(state, scal, **ops), 50, ("finish_bw", "finish_columns")),
+         "plain_ms": cuda_ms(chain, 50), "plain_device_ms": all_device_ms(chain, 20),
+         **roofline(nbytes, 10 * k * p, F32_FLOPS), "max_abs_err": 0.0 if same else None}
+    check(r["device_ms"] is not None, "the profile shows no finish_bw / finish_columns kernel: no K6 device time")
+    print(f"    K6 step finish: {r['ms']:.4f} ms a call, {_fmt(r['device_ms'])} on the device "
+          f"({_pct(r['bound_ms'], r['device_ms'])} of the bound); the chain {r['plain_ms']:.4f} ms a call, "
+          f"{_fmt(r['plain_device_ms'])} on the device; bound {r['bound_ms']:.6f} ms ({r['bound_by']}) [{card}]")
+    return r
+
+
 # ---------------------------------------------------------------------------
 
 
 def _wrappers() -> dict:
     from sgdnet_tpu_torch.solver import epoch_kernel as ek
+    from sgdnet_tpu_torch.solver import finish_kernel as fk
     from sgdnet_tpu_torch.solver import head_kernel as hk
     from sgdnet_tpu_torch.solver import tail_kernel as tk
     from sgdnet_tpu_torch.tools import probe_kernels as pk
 
     return {"K1": ek.saga_epochs, "K2": hk.fused_head_step_at, "K3": tk.coo_tail_forward, "K4": tk.coo_tail_outer,
-            "K5": tk.coo_tail_sum, "P1": pk.epoch_probe, "P2": pk.block_colsum, "P3": pk.block_colsum_pipelined}
+            "K5": tk.coo_tail_sum, "K6": fk.finish_step, "P1": pk.epoch_probe, "P2": pk.block_colsum,
+            "P3": pk.block_colsum_pipelined}
 
 
 def _reset_launches():
@@ -1297,6 +1397,7 @@ def phase_slice_m(csr, sd, rng, dev, seed, card, launches) -> tuple:
           f"bits identical over two runs {since()}")
     bt = None
     k5 = phase_k5(step[1], k, n["K5"], seed, dev, "slice M", card)
+    k6 = phase_k6(step, n["K6"], seed, dev, "slice M", card)
     torch.cuda.empty_cache()
     sp_ = step_profile(*step, dev)
     step = None
@@ -1332,7 +1433,7 @@ def phase_slice_m(csr, sd, rng, dev, seed, card, launches) -> tuple:
            "plain_wall_s": wall_p, "plain_lambdas": fp.n_lambda, "plain_path_s": fp.stats["wall_time_s"],
            "plain_epochs": fp.npasses, "plain_peak_bytes": peak_p, "objective_max_rel_diff": rel,
            "class_rows": [int(counts.min()), int(counts.max())], "tail_max_abs_err": tail_err,
-           "tail_max_rel_err": tail_rel, "k5": k5}
+           "tail_max_rel_err": tail_rel, "k5": k5, "k6": k6}
     return out
 
 
@@ -2732,6 +2833,7 @@ def main(argv=None) -> int:
                                  SLICE_C, card, plain_lambdas=5)
     lam_c, obj_c = fit_c.lambda_, _objective(fit_c, csr, y_sp, sd)
     k5_c = phase_k5(step_c[1], 1, launches["C"]["K5"], args.seed, dev, "slice C", card)
+    k6_c = phase_k6(step_c, launches["C"]["K6"], args.seed, dev, "slice C", card)
     fit_c = step_c = None
     torch.cuda.empty_cache()
     phase("phase 9b: slice M (53 classes on slice C's design: K2's streamed design + K3 + K4), with the launch "
@@ -2859,6 +2961,10 @@ def main(argv=None) -> int:
         {"name": "coo_tail_sum (K5), the refresh's tail sum, slice M's tail at k 53", "route": "cuda",
          "source": tail_src, "replaces": "sgdnet_tpu/solver/saga.py:461 (_refresh_g_sum's tail scatter)",
          **by_path("K5", tail_paths), **slice_m["k5"], "slice_c": k5_c},
+        {"name": "step_finish (K6), the step's finish, slice M's step at k 53", "route": "cuda",
+         "source": "sgdnet_tpu_torch/csrc/step_finish.cu",
+         "replaces": "none: the step's finish (sgdnet_tpu/solver/saga.py, left to XLA)",
+         **by_path("K6", list(launches)), **slice_m["k6"], "library_ms": None, "slice_c": k6_c},
         {"name": "epoch_probe (P1)", "route": "cuda", "source": probe_src,
          "replaces": "tools/bench_epoch_kernel.py:65", **by_path("P1", ["P1"]), **p1},
         {"name": "block_colsum (P2), bf16 106496 x 16384, B 8192", "route": "cuda", "source": probe_src,

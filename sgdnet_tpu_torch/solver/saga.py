@@ -12,7 +12,8 @@ for the convergence test.  Two hand-written kernels replace the plain step
 where their gates allow: K1 (solver/epoch_kernel.py) runs a chunk of a
 lambda attempt's epochs per launch, with the convergence test on the card
 (one sync a chunk); K2 (solver/head_kernel.py) fuses the dense part of a
-step.
+step, and K6 (solver/finish_kernel.py) its finish: the SAGA estimate, the
+prox and the g_sum and intercept updates.
 
 The design matrix is dense, a PaddedCSR (the 'densify' or 'gather'
 `sparse_mode`) or a HybridCSR (core/sparse.py): a dense head driven by
@@ -53,7 +54,7 @@ from sgdnet_tpu_torch.core.sparse import HybridCSR, PaddedCSR
 from sgdnet_tpu_torch.families.families import Family
 from sgdnet_tpu_torch.penalties.penalties import Penalty
 from sgdnet_tpu_torch.solver import epoch_kernel as ek
-from sgdnet_tpu_torch.solver import head_kernel, tail_kernel
+from sgdnet_tpu_torch.solver import finish_kernel, head_kernel, tail_kernel
 from sgdnet_tpu_torch.utils import profiling
 
 
@@ -96,8 +97,9 @@ class SolverConfig:
     step_backoff: bool = True
     #: run whole epochs with the epoch kernel K1 (solver/epoch_kernel.py)
     use_epoch_kernel: bool = False
-    #: BlockCOO tail ops through K3 / K4 and the refresh's tail sum through
-    #: K5 (solver/tail_kernel.py); False runs the plain torch versions on any
+    #: BlockCOO tail ops through K3 / K4, the refresh's tail sum through K5
+    #: (solver/tail_kernel.py) and the step's finish through K6
+    #: (solver/finish_kernel.py); False runs the plain torch versions on any
     #: device (the comparison path)
     use_tail_kernel: bool = True
     #: data-parallel execution (the JAX package's `axis_name`): a
@@ -306,11 +308,14 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
                offs=None, pf=None, box=None, xc=None):
     """Return `step(state, scal, sel) -> state`.  The returned state shares
     the input's g_mem, which the step updates in place (the epoch owns a
-    private copy)."""
+    private copy).  On K6's route (`finish_kernel.uses_finish_kernel`) the
+    finish is one call of a launcher bound here (`step.finish`), which
+    takes a state its `prepare` passed."""
     B = config.batch_size
     hybrid = isinstance(x, HybridCSR)
     kernels = config.use_tail_kernel
     mesh = config.mesh
+    reduce = None
     if mesh is not None:
         # the step's one collective: [sum wb, sum gc (k), corr (k, p)] in one
         # buffer, written through its views, reduced in place and read
@@ -318,12 +323,27 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         k, p = family.n_classes, x.shape[1]
         red = torch.empty((1 + k + k * p,), dtype=y.dtype, device=y.device)
         red_bw, red_gc, red_corr = red[0], red[1 : 1 + k], red[1 + k :].view(k, p)
+
+        def reduce(wb, g_change, corr):
+            torch.sum(wb, dim=0, out=red_bw)
+            torch.sum(g_change, dim=0, out=red_gc)
+            red_corr.copy_(corr)
+            mesh.all_reduce(red, "step")
+            return torch.clamp(red_bw, min=1e-12), red_gc, red_corr
     # K3 bound once for the step's blocks (its checks run here, not a call)
     fwd = None
     if kernels and hybrid and x.blk_tail is not None and x.blk_tail.batch == B and x.blk_tail.device.type == "cuda":
         if x.blk_tail.n_cols != x.n_cols or tuple(y.shape) != (x.blk_tail.n_blocks * B, family.n_classes):
             raise ValueError("the BlockCOO tail does not match the design and the response")
         fwd = tail_kernel.ForwardLauncher(x.blk_tail, family.n_classes, y.dtype)
+    pallas = uses_head_kernel(x, family, config)
+    # K6 bound once for the step (its checks run here, not a call); on
+    # step_pallas's hybrid route it also merges the head's corr
+    finish = None
+    if finish_kernel.uses_finish_kernel(y.device, y.dtype, penalty, config, xc):
+        finish = finish_kernel.FinishLauncher(B, family.n_classes, x.shape[1], x.n_head if pallas and hybrid else 0,
+                                              y.dtype, y.device, penalty, w_total, config.fit_intercept, pf=pf,
+                                              box=box, weights=weights)
 
     def step_pallas(state: SagaState, scal: _Scalars, sel):
         # K2 takes the FULL head and the block start, and lp_extra carries
@@ -352,12 +372,15 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         with profiling.span("sgdnet.step.tail_outer"):
             if hybrid:
                 corr = _tail_outer(x, g_change, sel, B, kernels)
-                corr[:, : x.n_head] += corr_head.to(corr.dtype)
+                corr_head = corr_head.to(corr.dtype)
+                if finish is None:  # K6 merges the head's corr itself
+                    corr[:, : x.n_head] += corr_head
+                    corr_head = None
                 if xc is not None:  # xc is zero on head columns
                     corr = corr - torch.outer(torch.sum(g_change, dim=0), xc.to(corr.dtype))
             else:
-                corr = corr_head.to(state.w.dtype)
-        return _finish_step(state, scal, wb, g_change, corr)
+                corr, corr_head = corr_head.to(state.w.dtype), None
+        return _finish_step(state, scal, wb, g_change, corr, corr_head)
 
     def step_xla(state: SagaState, scal: _Scalars, sel):
         yb = _rows(y, sel, B)
@@ -370,45 +393,20 @@ def _make_step(x, y, weights, w_total: float, family: Family, penalty: Penalty, 
         corr = _batch_outer(x, xc, g_change, sel, B, config.sparse_mode, kernels)
         return _finish_step(state, scal, wb, g_change, corr)
 
-    def _finish_step(state: SagaState, scal: _Scalars, wb, g_change, corr):
+    def _finish_step(state: SagaState, scal: _Scalars, wb, g_change, corr, corr_head=None):
         with profiling.span("sgdnet.step.finish"):
-            if mesh is None:
-                bw = torch.clamp(torch.sum(wb), min=1e-12)
-                sum_gc = torch.sum(g_change, dim=0)  # (k,)
-            else:
-                torch.sum(wb, dim=0, out=red_bw)
-                torch.sum(g_change, dim=0, out=red_gc)
-                red_corr.copy_(corr)
-                mesh.all_reduce(red, "step")
-                bw, sum_gc, corr = torch.clamp(red_bw, min=1e-12), red_gc, red_corr
-            grad_est = corr / bw + state.g_sum
-            # per-feature penalty factors scale both the L2 decay and the prox
-            # threshold (glmnet `penalty.factor`); pf is (p,), broadcast over k
-            if pf is None:
-                w_half = state.w * scal.shrink - scal.gamma * grad_est
-                w_new = penalty.prox(w_half, scal.gl1)
-            else:
-                w_half = state.w * (1.0 - scal.gl2 * pf) - scal.gamma * grad_est
-                w_new = penalty.prox(w_half, scal.gl1 * pf)
-            if box is not None:
-                # box constraints: project onto [lo, hi] after the prox
-                w_new = torch.minimum(torch.maximum(w_new, box[0]), box[1])
-            g_sum = state.g_sum + corr / w_total
-            if config.fit_intercept:
-                # intercept step with the same SAGA estimator: fresh batch-mean
-                # gradient change + stale average
-                grad_est_b = sum_gc / bw + state.g_sum_intercept
-                intercept = state.intercept - scal.gdecay * grad_est_b
-                g_sum_i = state.g_sum_intercept + sum_gc / w_total
-            else:
-                intercept = state.intercept
-                g_sum_i = state.g_sum_intercept
-            return SagaState(w_new, intercept, state.g_mem, g_sum, g_sum_i)
+            if finish is not None:
+                # corr comes transposed from a PaddedCSR's scatter
+                return finish(state, scal, wb, g_change, corr.contiguous(), corr_head)
+            return finish_kernel.finish_step_reference(state, scal, wb, g_change, corr, penalty, w_total,
+                                                       config.fit_intercept, pf=pf, box=box, reduce=reduce)
 
-    step = step_pallas if uses_head_kernel(x, family, config) else step_xla
-    #: the bound K3 launcher (None off the card's BlockCOO path): the epoch
-    #: reads its stream once
+    step = step_pallas if pallas else step_xla
+    #: the bound K3 and K6 launchers (None off their routes): the epoch
+    #: reads their streams once and passes its input state through K6's
+    #: `prepare`
     step.tail_forward = fwd
+    step.finish = finish
     return step
 
 
@@ -453,8 +451,13 @@ def _make_epoch(x, y, weights, w_total: float, family, penalty, config: SolverCo
         with profiling.span("sgdnet.epoch", epoch=it):
             scal = _scalars(gamma, l1, l2, config.intercept_decay, dt)
             state = state._replace(g_mem=state.g_mem.clone())
-            if step.tail_forward is not None:
-                step.tail_forward.refresh_stream()
+            # a wrapper of the step may carry only `tail_forward`
+            finish = getattr(step, "finish", None)
+            for launcher in (step.tail_forward, finish):
+                if launcher is not None:
+                    launcher.refresh_stream()
+            if finish is not None:
+                state = finish.prepare(state)
             if config.sampling == "block":
                 # contiguous blocks in random order (rows pre-shuffled by fit())
                 sels = [int(s) * B for s in order.tolist()]

@@ -24,14 +24,14 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("epoch_kernel.cu", "head_step.cu", "coo_tail.cu", "probes.cu")
+SOURCES = ("epoch_kernel.cu", "head_step.cu", "coo_tail.cu", "step_finish.cu", "probes.cu")
 HEADERS = ("common.h",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "sgd_epochs": (
         [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
@@ -51,6 +51,10 @@ _SIGNATURES = {
     "sgd_coo_tail_forward": ([_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P, _P, _P, _P, _P], ctypes.c_int),
     "sgd_coo_tail_outer": ([_P, _P, _P, _P, _I, _I, _P, _I, _I, _LL, _P, _P], ctypes.c_int),
     "sgd_coo_tail_sum": ([_P, _P, _P, _I, _LL, _I, _P, _I, _I, _LL, _P, _P], ctypes.c_int),
+    "sgd_step_finish": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _D, _P, _I, _I, _I, _LL, _I, _I, _I, _D, _P, _P, _P, _P],
+        ctypes.c_int,
+    ),
     "sgd_epoch_probe": ([_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
     "sgd_block_colsum": ([_P, _LL, _I, _I, _I, _P, _P, _P], ctypes.c_int),
     "sgd_block_colsum_pipelined": ([_P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P], ctypes.c_int),

@@ -16,6 +16,10 @@ at 1e-5 relative (f32 reassociation only; f64 at 1e-12) and bit-identical
 across two runs, K3 at every lane count with and without its epilogue,
 K5 also through the g_sum refresh (two refreshes, the same bits);
 fits through a kernel vs the plain step path on the card at 1e-4 x scale;
+K6 (the step's finish) against the chain of torch ops it replaces, run on
+the card: in f32 w and g_sum the same bits, the intercept within 1e-6
+relative (its sum's order differs); f64 within 1e-12; the same bits over
+two launches;
 the probes P1 at 1e-5 x max and bit-identical across two runs, P2 / P3
 within 1e-6 x sum |x| per column, P2 bit-identical.
 """
@@ -31,6 +35,8 @@ from sgdnet_tpu_torch.core.sparse import HEAVY_LEN, BlockCOO, PaddedCSR
 from sgdnet_tpu_torch.families import get_family
 from sgdnet_tpu_torch.penalties import select_penalty
 from sgdnet_tpu_torch.solver import epoch_kernel as ek
+from sgdnet_tpu_torch.solver import finish_kernel as fk
+from sgdnet_tpu_torch.solver import saga
 from sgdnet_tpu_torch.solver import head_kernel as hk
 from sgdnet_tpu_torch.solver import tail_kernel as tk
 from sgdnet_tpu_torch.solver.saga import SagaState
@@ -444,7 +450,6 @@ def test_refresh_runs_tail_sum_once_and_repeats_its_bits(dev):
     import dataclasses
 
     from sgdnet_tpu_torch.core.sparse import HybridCSR
-    from sgdnet_tpu_torch.solver import saga
 
     _, x = _cell_tail(dev, torch.float32, n_blocks=2, B=2048)
     h, _ = HybridCSR.split_columns(sp.hstack([sp.random(x.shape[0], 256, 0.3, format="csr", random_state=1), x],
@@ -477,7 +482,9 @@ def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     head) vs the same fit on plain torch ops: the same batch orders, so the
     paths differ by reassociation only, and meet at the solution within
     1e-3 x scale, the fit's own tolerance (1e-2 on a bf16 head, whose w is
-    rounded to bf16 in every product)."""
+    rounded to bf16 in every product).  Standardized, the step's finish
+    stays the chain (the centering term xc); unstandardized it is K6,
+    one call a step, and that fit meets its plain twin the same way."""
     rng = np.random.default_rng(4)
     n, p = 6000, 2500
     wz = (np.arange(p) + 10.0) ** -1.15
@@ -489,20 +496,199 @@ def test_hybrid_fit_through_kernels_matches_plain_path(dev, head):
     common = dict(family="binomial", nlambda=4, lambda_min_ratio=0.1, batch_size=1024, sampling="block",
                   hybrid_max_head=256, hybrid_coverage=0.8, hybrid_head_dtype=head, device=dev, maxit=60)
     launches = (tk.coo_tail_forward.launches, tk.coo_tail_outer.launches, hk.fused_head_step_at.launches)
-    sums = tk.coo_tail_sum.launches
+    sums, finishes = tk.coo_tail_sum.launches, fk.finish_step.launches
     f_k = st.fit(x, y, use_pallas=head != "int8", **common)
     assert f_k.stats["tail_kernel"] is True and f_k.stats["head_kernel"] is (head != "int8")
     assert tk.coo_tail_forward.launches > launches[0] and tk.coo_tail_outer.launches > launches[1]
     assert (hk.fused_head_step_at.launches > launches[2]) is (head != "int8")
     assert tk.coo_tail_sum.launches > sums  # the refresh's tail sum (K5)
+    # standardized sparse input carries the centering term xc, which keeps
+    # the step's finish on the chain of torch ops
+    assert fk.finish_step.launches == finishes
     sums = tk.coo_tail_sum.launches
     f_p = st.fit(x, y, use_pallas=False, use_tail_kernel=False, lambda_path=f_k.lambda_,
                  **{k: v for k, v in common.items() if k != "nlambda"})
     assert f_p.stats["tail_kernel"] is False and f_p.stats["head_kernel"] is False
-    assert tk.coo_tail_sum.launches == sums
+    assert tk.coo_tail_sum.launches == sums and fk.finish_step.launches == finishes
     scale = max(1.0, np.abs(f_p.beta).max())
     assert np.abs(f_k.beta - f_p.beta).max() / scale < (1e-2 if head == "bfloat16" else 1e-3)
     assert np.isfinite(f_k.dev_ratio).all() and f_k.dev_ratio[-1] > f_k.dev_ratio[0]
+    # unstandardized (no xc), every step's finish is one K6 call, as many
+    # as K4's launches, and the fit meets the plain one as above
+    k4 = tk.coo_tail_outer.launches
+    f_u = st.fit(x, y, use_pallas=head != "int8", standardize=False, **common)
+    assert fk.finish_step.launches - finishes == tk.coo_tail_outer.launches - k4 > 0
+    finishes = fk.finish_step.launches
+    f_up = st.fit(x, y, use_pallas=False, use_tail_kernel=False, standardize=False, lambda_path=f_u.lambda_,
+                  **{k: v for k, v in common.items() if k != "nlambda"})
+    assert fk.finish_step.launches == finishes
+    scale = max(1.0, np.abs(f_up.beta).max())
+    assert np.abs(f_u.beta - f_up.beta).max() / scale < (1e-2 if head == "bfloat16" else 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6, the step's finish (solver/finish_kernel.py)
+# ---------------------------------------------------------------------------
+
+
+def _finish_operands(dev, dtype, k, p, D, B, seed, pf=False, box=False):
+    """A seeded state and step operands on the card: wb of 0s and 1s (as
+    the cells' weights), so the chain's bw is the same in any order."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=dev)  # noqa: E731
+    state = SagaState(w=t(0.05 * rng.normal(size=(k, p))), intercept=t(rng.normal(size=k)),
+                      g_mem=torch.zeros((B, k), dtype=dtype, device=dev), g_sum=t(1e-3 * rng.normal(size=(k, p))),
+                      g_sum_intercept=t(1e-3 * rng.normal(size=k)))
+    ops = dict(wb=t(rng.random(B) < 0.95), g_change=t(0.1 * rng.normal(size=(B, k))),
+               corr=t(rng.normal(size=(k, p))), corr_head=t(rng.normal(size=(k, D))) if D else None)
+    bound = dict(pf=t(rng.uniform(0.0, 2.0, p)) if pf else None,
+                 box=(t(-0.04 * np.abs(rng.normal(size=(k, p)))), t(0.03 * np.abs(rng.normal(size=(k, p)))))
+                 if box else None)
+    return state, ops, bound
+
+
+def _finish_check(dev, dtype, k, p, D, B, penalty, fit_intercept=True, seed=0, **bound_kw):
+    """K6 through a bound launcher against the chain (`finish_step_reference`)
+    on the card, one step from a seeded state; two launches alike, one
+    counted call each, the inputs untouched and the outputs fresh storage."""
+    state, ops, bound = _finish_operands(dev, dtype, k, p, D, B, seed, **bound_kw)
+    scal = saga._scalars(2e-3, 5.0, 0.1, 1.0, saga.np_dtype(dtype))
+    w_total = float(B)
+    launcher = fk.FinishLauncher(B, k, p, D, dtype, dev, penalty, w_total, fit_intercept, **bound)
+    inputs = [t.clone() for t in (*state, *[v for v in ops.values() if v is not None])]
+    before = fk.finish_step.launches
+    a = launcher(launcher.prepare(state), scal, **ops)
+    b = launcher(launcher.prepare(state), scal, **ops)
+    assert fk.finish_step.launches == before + 2
+    ref = fk.finish_step_reference(state, scal, ops["wb"], ops["g_change"], ops["corr"], penalty, w_total,
+                                   fit_intercept, corr_head=ops["corr_head"], **bound)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert all(torch.equal(u, v) for u, v in zip(inputs, (*state, *[v for v in ops.values() if v is not None])))
+    ins = {t.data_ptr() for t in (*state, *ops.values()) if t is not None}
+    assert a.w.data_ptr() not in ins and a.g_sum.data_ptr() not in ins and a.g_mem is state.g_mem
+    if dtype == torch.float32:
+        assert torch.equal(a.w, ref.w) and torch.equal(a.g_sum, ref.g_sum)
+        torch.testing.assert_close(a.intercept, ref.intercept, rtol=1e-6, atol=1e-6 * float(ref.intercept.abs().max()))
+        torch.testing.assert_close(a.g_sum_intercept, ref.g_sum_intercept, rtol=1e-6,
+                                   atol=1e-6 * float(ref.g_sum_intercept.abs().max()))
+    else:
+        for u, v in zip(a, ref):
+            torch.testing.assert_close(u, v, rtol=0, atol=1e-12 * max(1.0, float(v.abs().max())))
+    if not fit_intercept:
+        assert a.intercept is state.intercept and a.g_sum_intercept is state.g_sum_intercept
+    return a, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 53])
+def test_finish_kernel_matches_chain_at_the_cells_shapes(dev, dtype, k):
+    """The cells' step: p 47236, a bf16 head of 16384 columns, B 8192,
+    elastic net, the intercept fitted."""
+    from sgdnet_tpu_torch.penalties import ElasticNet
+
+    a, _ = _finish_check(dev, dtype, k, 47236, 16384, 8192, ElasticNet(), seed=k)
+    assert (a.w == 0).any() and (a.w != 0).any()
+
+
+@pytest.mark.parametrize("case", ["ridge", "en-pf", "en-box", "ridge-pf-box-no-icpt", "en-odd", "en-no-head"])
+def test_finish_kernel_options(dev, case):
+    """Ridge and elastic net with pf, a box and no intercept (f32, the
+    same bits as the chain), at 16-byte loads (p 4096, D 512), at one
+    column a thread (p 1001, D 101: 4 divides neither) and without a head."""
+    from sgdnet_tpu_torch.penalties import ElasticNet, Ridge
+
+    pen = Ridge() if case.startswith("ridge") else ElasticNet()
+    p, D = (1001, 101) if case == "en-odd" else (4096, 0 if case == "en-no-head" else 512)
+    _finish_check(dev, torch.float32, 3, p, D, 1000, pen, fit_intercept=not case.endswith("no-icpt"), seed=7,
+                  pf="pf" in case, box="box" in case)
+
+
+def test_finish_kernel_on_a_misaligned_state(dev):
+    """A contiguous state whose w starts 4 bytes past a 16-byte boundary
+    takes the one-column path, with the chain's bits."""
+    from sgdnet_tpu_torch.penalties import ElasticNet
+
+    k, p, B = 2, 4096, 512
+    state, ops, _ = _finish_operands(dev, torch.float32, k, p, 256, B, 3)
+    buf = torch.empty(k * p + 1, dtype=torch.float32, device=dev)
+    w = buf[1:].view(k, p)
+    w.copy_(state.w)
+    assert w.data_ptr() % 16 == 4
+    state = state._replace(w=w)
+    scal = saga._scalars(2e-3, 5.0, 0.1, 1.0, np.float32)
+    out = fk.finish_step(state, scal, ops["wb"], ops["g_change"], ops["corr"], ElasticNet(), float(B),
+                         corr_head=ops["corr_head"])
+    ref = fk.finish_step_reference(state, scal, ops["wb"], ops["g_change"], ops["corr"], ElasticNet(), float(B), True,
+                                   corr_head=ops["corr_head"])
+    torch.cuda.synchronize()
+    assert torch.equal(out.w, ref.w) and torch.equal(out.g_sum, ref.g_sum)
+
+
+def test_finish_kernel_rejects_what_it_does_not_take(dev):
+    """The bind-time checks: a wrong dtype, shape, device or layout of a
+    bound operand, of the state `prepare` passes, or of a checked call's
+    operands raises, and nothing launches."""
+    from sgdnet_tpu_torch.penalties import ElasticNet
+
+    k, p, D, B = 2, 64, 16, 32
+    pen = ElasticNet()
+    f32 = dict(dtype=torch.float32, device=dev)
+    bind = (B, k, p, D, torch.float32, dev, pen, float(B), True)
+    before = fk.finish_step.launches
+    for kw, what in ((dict(pf=torch.ones(p, dtype=torch.float64, device=dev)), "pf"),
+                     (dict(pf=torch.ones(p + 1, **f32)), "pf"),
+                     (dict(pf=torch.ones(p)), "pf"),
+                     (dict(box=(torch.zeros((p, k), **f32).T, torch.ones((k, p), **f32))), "box lo"),
+                     (dict(box=(torch.zeros((k, p), **f32), torch.ones((1, p), **f32))), "box hi"),
+                     (dict(weights=torch.ones(B, dtype=torch.float64, device=dev)), "weights")):
+        with pytest.raises(ValueError, match=what):
+            fk.FinishLauncher(*bind, **kw)
+    launcher = fk.FinishLauncher(*bind)
+    state = saga.init_state(B, p, k, torch.float32, dev)
+    with pytest.raises(ValueError, match="state.w"):
+        launcher.prepare(state._replace(w=torch.zeros((k, p + 1), **f32)))
+    with pytest.raises(ValueError, match="state.g_sum"):
+        launcher.prepare(state._replace(g_sum=torch.zeros((k, p), dtype=torch.float64, device=dev)))
+    with pytest.raises(ValueError, match="state.intercept"):
+        launcher.prepare(state._replace(intercept=torch.zeros(k)))
+    assert launcher.prepare(state._replace(w=torch.zeros((p, k), **f32).T)).w.is_contiguous()
+    scal = saga._scalars(1e-3, 1e-3, 0.0, 1.0, np.float32)
+    args = dict(wb=torch.ones(B, **f32), g_change=torch.zeros((B, k), **f32), corr=torch.zeros((k, p), **f32),
+                corr_head=torch.zeros((k, D), **f32))
+    for name, bad in (("wb", torch.ones(B, dtype=torch.float64, device=dev)),
+                      ("g_change", torch.zeros((B, k + 1), **f32)), ("corr_head", torch.zeros((D, k), **f32).T)):
+        with pytest.raises(ValueError, match=name):
+            fk.finish_step(state, scal, penalty=pen, w_total=float(B), **{**args, name: bad})
+    assert fk.finish_step.launches == before
+
+
+def test_meshed_and_group_lasso_fits_run_the_chain(dev):
+    """A group-lasso fit and a fit on a one-rank mesh (gloo, through the
+    host) on the card take the chain: K6 counts no launch.  An elastic-net
+    fit of the same data on the card counts one a step."""
+    import torch.distributed as dist
+
+    from sgdnet_tpu_torch.parallel.dist import make_mesh
+
+    x, y = st.load_heart()
+    common = dict(nlambda=4, device=dev, use_epoch_kernel=False, sampling="block", batch_size=32, maxit=50)
+    before = fk.finish_step.launches
+    rng = np.random.default_rng(0)
+    y01 = (y == np.unique(y)[0]).astype(float)
+    st.fit(x, np.stack([y01, y01 + rng.normal(size=y.shape)], axis=1), family="mgaussian", **common)
+    assert fk.finish_step.launches == before
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        f = st.fit(x, y, family="binomial", mesh=make_mesh(device=dev), **common)
+    finally:
+        if made:
+            dist.destroy_process_group()
+    assert f.stats["mesh"]["size"] == 1 and fk.finish_step.launches == before
+    f = st.fit(x, y, family="binomial", **common)
+    assert fk.finish_step.launches - before == f.npasses * (-(-x.shape[0] // 32)) > 0
 
 
 # ---------------------------------------------------------------------------
